@@ -1,0 +1,292 @@
+"""The simulator core: the scene on the device and its frame schedule.
+
+Counterpart of ``particle_simulator_tpu/engine/simulator.py`` for the
+MatrixBuckets path on one device:
+
+- ``load_frame`` picks a bucket grid for the scene's density (``_grid_for``),
+  bucketizes it on the host and uploads it;
+- ``update_metadata`` applies a metadata-only frame on the next dispatch by
+  rebuilding the small params tensor: no kernel is rebuilt;
+- ``frame_async`` enqueues one frame of kernel launches on the current CUDA
+  stream and returns (CUDA's own asynchrony gives the compute/readback
+  overlap the daemon relies on);
+- ``start_readback`` packs the live particles on the device
+  (``ops/readback.py``) and starts their copy into pinned host buffers;
+  ``read_frame`` waits on the ticket's CUDA event, widening the sticky pack
+  sizes and retrying when the scene outgrew them.
+
+A ``Simulator`` on ``device="cpu"`` runs the plain PyTorch versions and
+echoes ``Device.CPU_THREAD_POOL``, as the JAX engine does on a host without
+an accelerator. CompactArray and the CPU device requests are not ported yet
+and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from particle_simulator_tpu.io.frame import DataStructure, Device, Frame
+from particle_simulator_tpu_torch.engine.state import (
+    ParticleState,
+    SimParams,
+    state_from_numpy,
+)
+from particle_simulator_tpu_torch.ops.bucket_cuda import run_frame_bucket_cuda
+from particle_simulator_tpu_torch.ops.readback import (
+    dense_readback,
+    dense_to_particles,
+    pow2_at_least,
+)
+from particle_simulator_tpu_torch.physics.bucket import (
+    REFERENCE_GRID,
+    GridConfig,
+    bucketize_numpy,
+    run_frame_bucket,
+)
+
+
+class ReadbackTicket:
+    """A started readback: the device-packed live particles (``scalars`` =
+    ``[max_occupancy, total]``, ``packed`` = the five fields), on their way
+    to pinned host memory until ``event`` completes (``event`` is None on
+    the CPU). ``state`` is kept for the widen-and-retry path."""
+
+    __slots__ = ("state", "scalars", "packed", "k", "ncap", "event")
+
+    def __init__(self, state, scalars, packed, k, ncap, event=None):
+        self.state = state
+        self.scalars = scalars
+        self.packed = packed
+        self.k = k
+        self.ncap = ncap
+        self.event = event
+
+
+def _check_request(ds: DataStructure, dev: Device) -> None:
+    if ds != DataStructure.MATRIX_BUCKETS:
+        raise NotImplementedError(
+            f"{ds.display_name} is not ported yet (ROADMAP.md queue 1 item 8); "
+            "this engine serves MatrixBuckets"
+        )
+    if dev != Device.GPU:
+        raise NotImplementedError(
+            f"the {dev.display_name} device path is not ported yet "
+            "(ROADMAP.md queue 1 item 9); request Device.GPU"
+        )
+
+
+def _grid_for(
+    live: np.ndarray,
+    base: GridConfig,
+    box_width: float,
+    r0: float,
+    box_height: float | None = None,
+) -> GridConfig:
+    """Density-aware grid selection (the JAX engine's, unchanged): grow the
+    bucket grid until the fullest bucket fits, but never shrink buckets
+    below ~2 equilibrium distances (the 3x3 neighbourhood must cover the
+    force range); past that floor grow the capacity instead, up to 256.
+    Then halve the capacity while splitting the wider axis as long as the
+    scene fits and buckets stay >= 2 r0, and halve it in place when the
+    occupancy leaves 2x headroom."""
+    def max_occupancy(c: GridConfig) -> int:
+        bx = (live["x"] >> np.uint32(32 - c.bx_log2)).astype(np.int64)
+        by = (live["y"] >> np.uint32(32 - c.by_log2)).astype(np.int64)
+        return int(np.bincount(by * c.bx + bx, minlength=c.buckets).max())
+
+    cfg = base
+    while cfg.capacity < len(live):
+        cfg = GridConfig(cfg.bx_log2 + 1, cfg.by_log2 + 1, cfg.cap, cfg.move_every)
+    if len(live) == 0:
+        return cfg
+    box_height = box_width if box_height is None else box_height
+    while max_occupancy(cfg) > cfg.cap:
+        bucket_side = min(box_width / cfg.bx, box_height / cfg.by)
+        if bucket_side / 2.0 >= 2.0 * r0:
+            cfg = GridConfig(cfg.bx_log2 + 1, cfg.by_log2 + 1, cfg.cap, cfg.move_every)
+        elif cfg.cap < 256:
+            cfg = GridConfig(cfg.bx_log2, cfg.by_log2, cfg.cap * 2, cfg.move_every)
+        else:
+            break  # accept drops (reference semantics)
+
+    while cfg.cap > 8:
+        if box_width / cfg.bx >= box_height / cfg.by:  # split the wider side
+            finer = GridConfig(cfg.bx_log2 + 1, cfg.by_log2, cfg.cap // 2, cfg.move_every)
+            side = box_width / finer.bx
+        else:
+            finer = GridConfig(cfg.bx_log2, cfg.by_log2 + 1, cfg.cap // 2, cfg.move_every)
+            side = box_height / finer.by
+        if side < 2.0 * r0 or max_occupancy(finer) > finer.cap:
+            break
+        cfg = finer
+
+    while cfg.cap > 8 and 2 * max_occupancy(cfg) <= cfg.cap // 2:
+        cfg = GridConfig(cfg.bx_log2, cfg.by_log2, cfg.cap // 2, cfg.move_every)
+    return cfg
+
+
+class Simulator:
+    """Holds the scene on ``device`` and advances it frame by frame.
+    ``device`` defaults to CUDA and must exist: there is no silent CPU
+    fallback; pass ``device="cpu"`` for the plain versions."""
+
+    def __init__(self, grid: GridConfig = REFERENCE_GRID, device="cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "CUDA is not available; Simulator(device='cpu') runs the "
+                    "plain PyTorch versions instead"
+                )
+        elif self.device.type != "cpu":
+            raise ValueError(f"unsupported device {self.device}")
+        self.base_grid = grid
+        self.grid = grid
+        self.state: Optional[ParticleState] = None
+        self.params: Optional[SimParams] = None
+        self._pvec: Optional[torch.Tensor] = None  # params on the device
+        self.meta_record: Optional[np.ndarray] = None
+        self.data_structure = DataStructure.MATRIX_BUCKETS
+        self.active_device = (
+            Device.GPU if self.device.type == "cuda" else Device.CPU_THREAD_POOL
+        )
+        # readback pack sizes (ops/readback.py): kcap = the occupied slot
+        # prefix the pack gathers from (sticky power of two; grows on
+        # overflow, halves after a long low streak); ncap = the pack length
+        # (sticky power of two >= the live count, seeded at scene load)
+        self._readback_k = 8
+        self._readback_ncap = 1
+        self._readback_low_streak = 0
+        # the runner of the last frame_async: "bucket-cuda" or "bucket-torch-cpu"
+        self.active_kernel: str | None = None
+
+    def _set_meta(self, rec: np.ndarray) -> None:
+        self.meta_record = rec
+        self.params = SimParams.from_record(rec)
+        self._pvec = self.params.vector(self.device)
+
+    # -- scene / metadata ingest ----------------------------------------------
+    def load_frame(self, frame: Frame) -> None:
+        """Full scene reset from a non-empty editor frame."""
+        meta = frame.metadata
+        _check_request(meta.data_structure, meta.device)
+        rec = meta.copy()
+        # echo the device actually running in outbound metadata
+        rec["device"] = int(self.active_device)
+
+        parts = frame.particles
+        live = parts[parts["ty"] >= 0]
+        self.grid = g = _grid_for(
+            live, self.base_grid, meta.box_width,
+            meta.species(0).force0_r(), box_height=meta.box_height,
+        )
+        # per-bucket placed counts seed the readback sizes (bucketize fills
+        # slots ascending and drops past cap)
+        bxi = (live["x"] >> np.uint32(32 - g.bx_log2)).astype(np.int64)
+        byi = (live["y"] >> np.uint32(32 - g.by_log2)).astype(np.int64)
+        occ = np.minimum(np.bincount(bxi + byi * g.bx, minlength=g.buckets), g.cap)
+        self._readback_k = pow2_at_least(int(occ.max(initial=0)))
+        self._readback_ncap = pow2_at_least(len(live))
+        self._readback_low_streak = 0
+
+        t0 = time.perf_counter()
+        layout = bucketize_numpy(live, g)
+        bucketize_s = time.perf_counter() - t0
+        self.state = state_from_numpy(layout, g.capacity, self.device).reshape(g.grid_shape)
+        self._set_meta(rec)
+        print(
+            f"engine: scene loaded ({len(live)} live, grid {g.bx}x{g.by}x{g.cap}, "
+            f"{self.device}, bucketize {bucketize_s:.2f}s)",
+            file=sys.stderr,
+        )
+
+    def update_metadata(self, frame: Frame) -> None:
+        """Metadata-only frame (particle_count == 0): a live reconfigure that
+        takes effect on the next dispatch; the particles are untouched.
+        Out-of-range enum bytes are ignored (the running values stay)."""
+        if self.meta_record is None:
+            return
+        new = frame.metadata.copy()
+        try:
+            _check_request(DataStructure(int(new["data_structure"])),
+                           Device(int(new["device"])))
+        except ValueError:
+            pass
+        new["data_structure"] = int(self.data_structure)
+        new["device"] = int(self.active_device)
+        self._set_meta(new)
+
+    # -- frame stepping ---------------------------------------------------------
+    def frame_async(self) -> None:
+        """Enqueue one frame (steps_per_frame steps) and return."""
+        if self.state is None:
+            return
+        steps = self.params.steps_per_frame
+        move_every = self.grid.move_every
+        if self.device.type == "cuda":
+            self.state = run_frame_bucket_cuda(self.state, self._pvec, steps, move_every)
+            self.active_kernel = "bucket-cuda"
+        else:
+            self.state = run_frame_bucket(self.state, self._pvec, steps, move_every)
+            self.active_kernel = "bucket-torch-cpu"
+
+    # -- readback ----------------------------------------------------------------
+    def start_readback(self, state: Optional[ParticleState] = None) -> ReadbackTicket:
+        """Pack ``state`` (default: the current one) on the device and start
+        its copy to the host; ``read_frame`` consumes the ticket."""
+        state = self.state if state is None else state
+        k = min(self._readback_k, state.x.shape[-1])
+        ncap = self._readback_ncap
+        if self.device.type != "cuda":
+            return ReadbackTicket(state, *dense_readback(state, k, ncap), k, ncap)
+        with torch.cuda.device(self.device):  # the pack, copies and event share its stream
+            scalars, packed = dense_readback(state, k, ncap)
+            host = []
+            for t in (scalars, *packed):
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                host.append(h)
+            event = torch.cuda.Event()
+            event.record()
+        return ReadbackTicket(state, host[0], ParticleState(*host[1:]), k, ncap, event)
+
+    def read_frame(self, state=None, meta: Optional[np.ndarray] = None) -> Frame:
+        """The live particles of a ticket (or of ``state``, default the
+        current one) as a wire frame stamped with ``meta`` (default: the
+        current metadata)."""
+        ticket = state if isinstance(state, ReadbackTicket) else self.start_readback(state)
+        rec = self.meta_record if meta is None else meta
+        if ticket.event is not None:
+            ticket.event.synchronize()
+        mx, total = (int(v) for v in ticket.scalars.tolist())
+        k, ncap = ticket.k, ticket.ncap
+        if mx > k or total > ncap:
+            # a bucket outgrew the slot prefix (or, defensively, the live
+            # count outgrew the pack): widen the sticky sizes and redo
+            self._readback_k = min(pow2_at_least(mx), ticket.state.x.shape[-1])
+            self._readback_ncap = max(ncap, pow2_at_least(total))
+            self._readback_low_streak = 0
+            ticket = self.start_readback(ticket.state)
+            if ticket.event is not None:
+                ticket.event.synchronize()
+            mx, total = (int(v) for v in ticket.scalars.tolist())
+        elif mx <= k // 2 and k > 1:
+            self._readback_low_streak += 1
+            if self._readback_low_streak >= 256:
+                self._readback_k = max(1, k // 2)
+                self._readback_low_streak = 0
+        else:
+            self._readback_low_streak = 0
+        live = dense_to_particles(total, ticket.packed)
+        return Frame.from_particles(rec, live, owned=True)
+
+    @property
+    def live_count(self) -> int:
+        if self.state is None:
+            return 0
+        return int((self.state.ty >= 0).sum())

@@ -1,0 +1,104 @@
+"""Build and load the bucket kernels (``ops/csrc/*.cu``).
+
+``nvcc`` compiles every ``.cu`` file under ``csrc/`` for Hopper (``sm_90a``)
+into one shared library with a plain C interface,
+``particle_simulator_tpu_torch/build/libbucket_kernels.so``, which is loaded
+with ``ctypes``. The build runs at first use and again only when the sources
+or flags change (a SHA-256 of both is stamped beside the library). Fast math
+is never on: the step kernel needs full-precision ``logf``/``expf``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
+LIB_NAME = "libbucket_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# entry point -> argtypes (pointers and the stream as c_void_p, so ctypes
+# never truncates them to 32 bits); every entry point returns a cudaError_t
+_SIGNATURES = {
+    # x, y, vx, vy, ty, params, ox, oy, ovx, ovy, by, bx, cap, stream
+    "ps_bucket_step": [_P] * 10 + [_I] * 3 + [_P],
+    # x, y, ty, destid, by, bx, cap, bx_log2, by_log2, stream
+    "ps_bucket_dest": [_P] * 4 + [_I] * 5 + [_P],
+    # x, y, vx, vy, ty, destid, ox, oy, ovx, ovy, oty, n, stream
+    "ps_bucket_place": [_P] * 11 + [ctypes.c_long, _P],
+}
+
+
+class KernelBuildError(RuntimeError):
+    """The kernels cannot be built here: no nvcc, or nvcc failed."""
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()
+
+
+def find_nvcc() -> str:
+    """``nvcc`` from PATH, then ``$CUDA_HOME/bin``, then ``/usr/local/cuda/bin``."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.access(os.path.join(root, "bin", "nvcc"), os.X_OK):
+            return os.path.join(root, "bin", "nvcc")
+    raise KernelBuildError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the CUDA "
+        "kernels build only where the CUDA toolkit is installed; CPU tensors "
+        "use the plain PyTorch versions and need no build"
+    )
+
+
+def build() -> Path:
+    """Compile the kernels if the stamped hash is stale; return the library."""
+    lib = BUILD_DIR / LIB_NAME
+    stamp = BUILD_DIR / (LIB_NAME + ".sha256")
+    digest = source_hash()
+    if lib.exists() and stamp.exists() and stamp.read_text() == digest:
+        return lib
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f".{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise KernelBuildError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, lib)
+    stamp.write_text(digest)
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """The built kernel library, loaded once per process."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,307 @@
+"""The port's serving slice against the JAX package: Simulator frames, the
+daemon over TCP against the unchanged headless editor, the readback
+pipeline's wire stream, the unported requests, and the no-jax rule.
+
+Envelope for frames after physics steps (tests/test_pallas.py's frame
+envelope): ``ty`` equal, x/y within 16 fixed-point units, vx/vy within
+rtol 1e-3, atol 0.05. Echoed scenes and metadata are byte-identical.
+"""
+
+import os
+import pkgutil
+import socket
+import subprocess
+import sys
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from particle_simulator_tpu.engine.simulator import Simulator as JSimulator
+from particle_simulator_tpu.io.frame import DataStructure, Device, Frame
+from particle_simulator_tpu.io.presets import ParticleLattice
+from particle_simulator_tpu.io.transport import new_tcp_server
+from particle_simulator_tpu.physics.bucket import GridConfig as JGridConfig
+from particle_simulator_tpu.scenes.library import _scene
+import particle_simulator_tpu_torch
+from particle_simulator_tpu_torch.engine import daemon
+from particle_simulator_tpu_torch.engine.daemon import Frontend, main_loop, serve
+from particle_simulator_tpu_torch.engine.simulator import Simulator
+from particle_simulator_tpu_torch.physics.bucket import GridConfig
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HEADER = 96  # wire header bytes (metadata included)
+
+
+def assert_frame_envelope(got: Frame, ref: Frame):
+    assert got.bytes[:HEADER] == ref.bytes[:HEADER]  # count + metadata
+    g, r = got.particles, ref.particles
+    np.testing.assert_array_equal(g["ty"], r["ty"])
+    for name in ("x", "y"):
+        np.testing.assert_allclose(g[name].astype(np.int64), r[name].astype(np.int64),
+                                   rtol=0, atol=16, err_msg=name)
+    for name in ("vx", "vy"):
+        np.testing.assert_allclose(g[name], r[name], rtol=1e-3, atol=0.05, err_msg=name)
+
+
+def test_slice_matches_jax_simulator():
+    frame = _scene(12, 12, distance_factor=1.1, speed=20.0, box_fill=0.5, steps_per_frame=20)
+    jsim = JSimulator()
+    jsim.load_frame(frame)
+    sim = Simulator(device="cpu")
+    sim.load_frame(frame)
+    assert tuple(sim.grid) == tuple(jsim.grid)
+    assert sim.read_frame().bytes == jsim.read_frame().bytes  # the scene echo
+    for _ in range(2):
+        jsim.frame_async()
+        sim.frame_async()
+        got, ref = sim.read_frame(), jsim.read_frame()
+        assert sim.live_count == jsim.live_count == frame.particle_count
+        assert_frame_envelope(got, ref)
+    assert sim.active_kernel == "bucket-torch-cpu"
+    assert got.metadata.device == Device.CPU_THREAD_POOL
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _sorted_records(parts: np.ndarray) -> bytes:
+    order = np.lexsort((parts["x"], parts["y"]))
+    return parts[order].tobytes()
+
+
+def test_daemon_serves_headless_editor_and_echoes_scene(monkeypatch):
+    """``serve`` against the unchanged editor CLI: 5 frames reach it, and
+    the first frame shipped is the scene it sent, byte for byte (records in
+    bucket order, the device field echoing the CPU fallback), identical to
+    the JAX engine's echo of the same scene."""
+    received, shipped = [], []
+    connect = Frontend.connect_tcp
+
+    class Capture(Frontend):
+        def read(self):
+            frame = super().read()
+            if frame is not None:
+                received.append(frame.copy())
+            return frame
+
+        def write(self, frame):
+            shipped.append(frame.bytes)
+            super().write(frame)
+
+    def connect_capture(addr, retry_s=0.0, native=False):
+        inner = connect(addr, retry_s=retry_s, native=native)
+        return Capture(inner.reader, inner.writer, verbose=False)
+
+    monkeypatch.setattr(daemon.Frontend, "connect_tcp", staticmethod(connect_capture))
+    port = _free_port()
+    editor = subprocess.Popen(
+        [sys.executable, "-m", "particle_simulator_tpu.editor.headless",
+         "--addr", f"127.0.0.1:{port}", "--lattice", "10x10", "--frames", "5",
+         "--steps-per-frame", "5", "--timeout", "120"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        n = serve(("127.0.0.1", port), Simulator(GridConfig(4, 4, 8), device="cpu"),
+                  max_frames=5, retry_s=60.0)
+        out, err = editor.communicate(timeout=120)
+    finally:
+        if editor.poll() is None:
+            editor.kill()
+            editor.wait()
+    assert editor.returncode == 0, err[-2000:]
+    assert n == 5 and len(shipped) == 5
+    scene = received[0]
+    assert scene.particle_count == 100
+
+    echo = Frame.from_bytes(shipped[0])
+    assert _sorted_records(echo.particles) == _sorted_records(scene.particles)
+    expect = scene.metadata.copy()
+    expect["device"] = Device.CPU_THREAD_POOL
+    assert echo.metadata.copy().tobytes() == expect.tobytes()
+    jsim = JSimulator(JGridConfig(4, 4, 8))
+    jsim.load_frame(scene)
+    assert shipped[0] == jsim.read_frame().bytes
+    for raw in shipped[1:]:
+        f = Frame.from_bytes(raw)
+        assert f.particle_count == 100 and np.isfinite(f.particles["vx"]).all()
+
+
+def _lattice_frame(n=8, steps=5):
+    """Sparse lattice (spacing 4 r0): no bucket overflows on 16x16x8."""
+    frame = Frame.new()
+    meta = frame.metadata
+    lat = ParticleLattice((n, n), distance_factor=4.0, velocity=(0.0, 10.0))
+    lat.hex_square(frame, (meta.box_width / 2, meta.box_height / 2),
+                   rng=np.random.default_rng(0))
+    meta.steps_per_frame = steps
+    return frame
+
+
+def _accept(server, timeout=30.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        conn = server.try_accept()
+        if conn:
+            return conn
+        time.sleep(0.005)
+    raise TimeoutError("engine never connected")
+
+
+def _read_until(reader, pred, timeout=60.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        f = reader.read()
+        if f is None:
+            time.sleep(0.002)
+        elif pred(f):
+            return f
+    raise TimeoutError("condition never met on the wire")
+
+
+def test_metadata_frame_reconfigures_live_and_scene_frame_resets():
+    server = new_tcp_server(("127.0.0.1", 0))
+    sim = Simulator(GridConfig(4, 4, 8), device="cpu")
+    t = threading.Thread(
+        target=serve, args=(("127.0.0.1", server.addr[1]), sim),
+        kwargs=dict(retry_s=10.0), daemon=True,
+    )
+    t.start()
+    reader, writer = _accept(server)
+    try:
+        scene = _lattice_frame()
+        assert writer.write(scene)
+        first = _read_until(reader, lambda f: True)
+        assert first.particle_count == scene.particle_count
+
+        update = Frame.new()
+        update.header["metadata"] = scene.metadata.copy()
+        update.metadata.step_dt = 1e-15
+        update.metadata.cursor_pos = (0.5, 0.5)
+        assert update.particle_count == 0
+        assert writer.write(update)
+        later = _read_until(reader, lambda f: abs(f.metadata.step_dt - 1e-15) < 1e-20)
+        assert later.particle_count == scene.particle_count  # no reset
+        assert tuple(later.metadata.cursor_pos) == pytest.approx((0.5, 0.5))
+
+        bigger = _lattice_frame(n=10)
+        assert writer.write(bigger)
+        echo = _read_until(reader, lambda f: f.particle_count == bigger.particle_count)
+        assert _sorted_records(echo.particles) == _sorted_records(bigger.particles)
+        nxt = _read_until(reader, lambda f: True)
+        assert nxt.particle_count == bigger.particle_count
+        assert not np.array_equal(np.sort(nxt.particles["y"]), np.sort(echo.particles["y"]))
+    finally:
+        reader.close()
+        writer.close()
+        server.close()
+    t.join(timeout=60)
+    assert not t.is_alive(), "daemon did not exit after the editor closed"
+
+
+def _scripted_stream(ship_thread: bool, depth: int) -> list[bytes]:
+    """main_loop over a deterministic frontend that injects a live metadata
+    edit (poll 2) and a scene reset (poll 4); returns the wire stream."""
+
+    class ScriptedFrontend:
+        is_connected = True
+
+        def __init__(self):
+            self.polls = 0
+            self.sent = []
+
+        def read(self):
+            self.polls += 1
+            if self.polls == 2:
+                edit = Frame.new()
+                edit.metadata.steps_per_frame = 7
+                return edit
+            if self.polls == 4:
+                return _lattice_frame(n=5, steps=3)
+            return None
+
+        def write(self, frame):
+            self.sent.append(frame.bytes)
+
+    frontend = ScriptedFrontend()
+    sim = Simulator(GridConfig(4, 4, 8), device="cpu")
+    sim.load_frame(_lattice_frame(n=6, steps=2))
+    shipped = main_loop(frontend, sim, max_frames=8, readback_depth=depth,
+                        ship_thread=ship_thread)
+    assert shipped == 8 and len(frontend.sent) == 8
+    return frontend.sent
+
+
+def test_readback_depth_and_ship_thread_ship_identical_streams():
+    streams = {(ship, depth): _scripted_stream(ship, depth)
+               for ship in (False, True) for depth in (0, 1)}
+    ref = streams[(False, 0)]
+    for key, stream in streams.items():
+        assert stream == ref, f"ship_thread/depth {key} changed the wire stream"
+    counts = [Frame.from_bytes(b).particle_count for b in ref]
+    assert len(set(counts)) == 2  # the reset really landed mid-stream
+
+
+def _with(frame: Frame, **fields) -> Frame:
+    frame = frame.copy()
+    for name, value in fields.items():
+        setattr(frame.metadata, name, value)
+    return frame
+
+
+@pytest.mark.parametrize("field, value", [
+    ("data_structure", DataStructure.COMPACT_ARRAY),
+    ("device", Device.CPU_THREAD_POOL),
+    ("device", Device.CPU_MAIN_THREAD),
+])
+def test_unported_requests_raise(field, value):
+    scene = _lattice_frame()
+    sim = Simulator(GridConfig(4, 4, 8), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sim.load_frame(_with(scene, **{field: value}))
+    sim.load_frame(scene)
+    edit = Frame.new()
+    edit.header["metadata"] = scene.metadata.copy()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sim.update_metadata(_with(edit, **{field: value}))
+    # garbage enum bytes are ignored, as in the JAX engine
+    edit.header["metadata"]["device"] = 77
+    sim.update_metadata(edit)
+    assert int(sim.meta_record["device"]) == Device.CPU_THREAD_POOL
+
+
+def test_default_device_is_cuda_and_never_falls_back():
+    if torch.cuda.is_available():
+        assert Simulator().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Simulator()
+    with pytest.raises(ValueError):
+        Simulator(device="meta")
+
+
+def test_port_never_imports_jax():
+    pkg_dir = os.path.dirname(particle_simulator_tpu_torch.__file__)
+    modules = ["particle_simulator_tpu_torch"] + [
+        m.name for m in pkgutil.walk_packages([pkg_dir], "particle_simulator_tpu_torch.")
+    ]
+    assert "particle_simulator_tpu_torch.engine.daemon" in modules
+    assert "particle_simulator_tpu_torch.ops.bucket_cuda" in modules
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.'))\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
