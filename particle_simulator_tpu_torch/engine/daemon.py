@@ -9,8 +9,8 @@ Counterpart of ``particle_simulator_tpu/engine/daemon.py`` on one device:
    ship an earlier frame, so the device computes frame k+1 while the host
    reads back and sends frame k.
 
-The wire codec and transport are the JAX package's jax-free
-``particle_simulator_tpu.io``, so the unchanged editor connects as before.
+The wire codec and transport are the port's own copy (``io/``) of the frozen
+wire format, so the unchanged editor connects as before.
 
 Run:  python -m particle_simulator_tpu_torch.engine.daemon [--addr HOST:PORT]
 """
@@ -24,8 +24,8 @@ import threading
 import time
 from collections import deque
 
-from particle_simulator_tpu.io.frame import Frame
-from particle_simulator_tpu.io.transport import (
+from particle_simulator_tpu_torch.io.frame import Frame
+from particle_simulator_tpu_torch.io.transport import (
     Disconnected,
     Reader,
     Writer,
@@ -51,9 +51,9 @@ class Frontend:
     @staticmethod
     def connect_tcp(addr, retry_s: float = 0.0, native: bool = False) -> "Frontend":
         """``native=True`` routes the transport through the C++ particle_io
-        library (``particle_simulator_tpu/io/native.py``)."""
+        library (``io/native.py``)."""
         if native:
-            from particle_simulator_tpu.io.native import new_tcp_client_native as connect
+            from particle_simulator_tpu_torch.io.native import new_tcp_client_native as connect
         else:
             connect = new_tcp_client
         deadline = time.monotonic() + retry_s

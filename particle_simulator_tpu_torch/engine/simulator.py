@@ -1,24 +1,32 @@
 """The simulator core: the scene on the device and its frame schedule.
 
-Counterpart of ``particle_simulator_tpu/engine/simulator.py`` for the
-MatrixBuckets path on one device:
+Counterpart of ``particle_simulator_tpu/engine/simulator.py`` on one device:
 
-- ``load_frame`` picks a bucket grid for the scene's density (``_grid_for``),
-  bucketizes it on the host and uploads it;
+- ``load_frame`` lays the scene out for the requested data structure:
+  MatrixBuckets picks a bucket grid for the scene's density (``_grid_for``)
+  and bucketizes on the host; CompactArray keeps the live particles first,
+  then tombstones up to ``max(1024, pow2 >= live)`` slots. It uploads to
+  the device the request resolves to (``_target_device``);
 - ``update_metadata`` applies a metadata-only frame on the next dispatch by
-  rebuilding the small params tensor: no kernel is rebuilt;
+  rebuilding the small params tensor (no kernel is rebuilt); a change of the
+  data structure, or of the device in effect, reads the running particles
+  back and lays them out again through ``load_frame``;
 - ``frame_async`` enqueues one frame of kernel launches on the current CUDA
   stream and returns (CUDA's own asynchrony gives the compute/readback
-  overlap the daemon relies on);
-- ``start_readback`` packs the live particles on the device
-  (``ops/readback.py``) and starts their copy into pinned host buffers;
-  ``read_frame`` waits on the ticket's CUDA event, widening the sticky pack
-  sizes and retrying when the scene outgrew them.
+  overlap the daemon relies on); CPU tensors run the plain versions;
+- ``start_readback`` packs the live particles of a bucket grid on the
+  device (``ops/readback.py``), or takes a CompactArray state whole, and
+  starts the copy into pinned host buffers; ``read_frame`` waits on the
+  ticket's CUDA event, widening the sticky pack sizes and retrying when the
+  scene outgrew them.
 
-A ``Simulator`` on ``device="cpu"`` runs the plain PyTorch versions and
-echoes ``Device.CPU_THREAD_POOL``, as the JAX engine does on a host without
-an accelerator. CompactArray and the CPU device requests are not ported yet
-and raise ``NotImplementedError``.
+Devices: a ``GPU`` request runs the CUDA kernels on a CUDA ``Simulator``;
+``CPU_THREAD_POOL`` and ``CPU_MAIN_THREAD`` move the scene to CPU tensors,
+run the plain PyTorch versions eagerly on the caller's thread and echo the
+request. A ``Simulator(device="cpu")`` has no card, so it serves ``GPU``
+requests on the CPU and echoes ``CPU_THREAD_POOL``, as the JAX engine does
+on a host without an accelerator. A CUDA ``Simulator`` needs the card: it
+never carries on on the CPU when the card was asked for.
 """
 
 from __future__ import annotations
@@ -30,12 +38,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from particle_simulator_tpu.io.frame import DataStructure, Device, Frame
 from particle_simulator_tpu_torch.engine.state import (
     ParticleState,
     SimParams,
     state_from_numpy,
+    state_to_numpy,
 )
+from particle_simulator_tpu_torch.io.frame import DataStructure, Device, Frame
+from particle_simulator_tpu_torch.ops.allpairs_cuda import run_frame_allpairs_cuda
 from particle_simulator_tpu_torch.ops.bucket_cuda import run_frame_bucket_cuda
 from particle_simulator_tpu_torch.ops.readback import (
     dense_readback,
@@ -46,15 +56,16 @@ from particle_simulator_tpu_torch.physics.bucket import (
     REFERENCE_GRID,
     GridConfig,
     bucketize_numpy,
-    run_frame_bucket,
 )
 
 
 class ReadbackTicket:
-    """A started readback: the device-packed live particles (``scalars`` =
-    ``[max_occupancy, total]``, ``packed`` = the five fields), on their way
-    to pinned host memory until ``event`` completes (``event`` is None on
-    the CPU). ``state`` is kept for the widen-and-retry path."""
+    """A started readback on its way to host memory until ``event``
+    completes (``event`` is None on the CPU). For a bucket grid,
+    ``scalars`` = ``[max_occupancy, total]`` and ``packed`` = the five
+    device-packed fields, sized ``k``/``ncap``; for a CompactArray state,
+    ``scalars`` is None and ``packed`` is the whole state. ``state`` is kept
+    for the widen-and-retry path."""
 
     __slots__ = ("state", "scalars", "packed", "k", "ncap", "event")
 
@@ -67,17 +78,9 @@ class ReadbackTicket:
         self.event = event
 
 
-def _check_request(ds: DataStructure, dev: Device) -> None:
-    if ds != DataStructure.MATRIX_BUCKETS:
-        raise NotImplementedError(
-            f"{ds.display_name} is not ported yet (ROADMAP.md queue 1 item 8); "
-            "this engine serves MatrixBuckets"
-        )
-    if dev != Device.GPU:
-        raise NotImplementedError(
-            f"the {dev.display_name} device path is not ported yet "
-            "(ROADMAP.md queue 1 item 9); request Device.GPU"
-        )
+def compact_capacity(live: int) -> int:
+    """Slots of a CompactArray layout: ``max(1024, pow2 >= live)``."""
+    return max(1024, pow2_at_least(live))
 
 
 def _grid_for(
@@ -131,9 +134,10 @@ def _grid_for(
 
 
 class Simulator:
-    """Holds the scene on ``device`` and advances it frame by frame.
-    ``device`` defaults to CUDA and must exist: there is no silent CPU
-    fallback; pass ``device="cpu"`` for the plain versions."""
+    """Holds the scene on a device and advances it frame by frame.
+    ``device`` is the card the ``GPU`` requests run on; it defaults to CUDA
+    and must exist: there is no silent CPU fallback. ``device="cpu"`` runs
+    every request through the plain versions."""
 
     def __init__(self, grid: GridConfig = REFERENCE_GRID, device="cuda"):
         self.device = torch.device(device)
@@ -149,12 +153,11 @@ class Simulator:
         self.grid = grid
         self.state: Optional[ParticleState] = None
         self.params: Optional[SimParams] = None
-        self._pvec: Optional[torch.Tensor] = None  # params on the device
+        self._pvec: Optional[torch.Tensor] = None  # params on the state's device
         self.meta_record: Optional[np.ndarray] = None
         self.data_structure = DataStructure.MATRIX_BUCKETS
-        self.active_device = (
-            Device.GPU if self.device.type == "cuda" else Device.CPU_THREAD_POOL
-        )
+        # the device the state lives on, and the Device the wire echoes
+        self.run_device, self.active_device = self._target_device(Device.GPU)
         # readback pack sizes (ops/readback.py): kcap = the occupied slot
         # prefix the pack gathers from (sticky power of two; grows on
         # overflow, halves after a long low streak); ncap = the pack length
@@ -162,107 +165,148 @@ class Simulator:
         self._readback_k = 8
         self._readback_ncap = 1
         self._readback_low_streak = 0
-        # the runner of the last frame_async: "bucket-cuda" or "bucket-torch-cpu"
+        # the runner of the last frame_async: "bucket-cuda", "allpairs-cuda",
+        # "bucket-torch-cpu" or "allpairs-torch-cpu"
         self.active_kernel: str | None = None
+
+    def _target_device(self, requested: Device) -> tuple[torch.device, Device]:
+        """The tensor device and the echoed ``Device`` of a request: ``GPU``
+        runs on this simulator's card (the CPU, echoed as
+        ``CPU_THREAD_POOL``, when it has none); both CPU requests run on
+        CPU tensors and echo themselves."""
+        if requested == Device.GPU:
+            if self.device.type == "cuda":
+                return self.device, Device.GPU
+            return torch.device("cpu"), Device.CPU_THREAD_POOL
+        return torch.device("cpu"), requested
 
     def _set_meta(self, rec: np.ndarray) -> None:
         self.meta_record = rec
         self.params = SimParams.from_record(rec)
-        self._pvec = self.params.vector(self.device)
+        self._pvec = self.params.vector(self.run_device)
 
     # -- scene / metadata ingest ----------------------------------------------
     def load_frame(self, frame: Frame) -> None:
         """Full scene reset from a non-empty editor frame."""
         meta = frame.metadata
-        _check_request(meta.data_structure, meta.device)
+        self.data_structure = meta.data_structure
+        self.run_device, self.active_device = self._target_device(meta.device)
         rec = meta.copy()
         # echo the device actually running in outbound metadata
         rec["device"] = int(self.active_device)
 
         parts = frame.particles
         live = parts[parts["ty"] >= 0]
-        self.grid = g = _grid_for(
-            live, self.base_grid, meta.box_width,
-            meta.species(0).force0_r(), box_height=meta.box_height,
-        )
-        # per-bucket placed counts seed the readback sizes (bucketize fills
-        # slots ascending and drops past cap)
-        bxi = (live["x"] >> np.uint32(32 - g.bx_log2)).astype(np.int64)
-        byi = (live["y"] >> np.uint32(32 - g.by_log2)).astype(np.int64)
-        occ = np.minimum(np.bincount(bxi + byi * g.bx, minlength=g.buckets), g.cap)
-        self._readback_k = pow2_at_least(int(occ.max(initial=0)))
-        self._readback_ncap = pow2_at_least(len(live))
-        self._readback_low_streak = 0
-
         t0 = time.perf_counter()
-        layout = bucketize_numpy(live, g)
-        bucketize_s = time.perf_counter() - t0
-        self.state = state_from_numpy(layout, g.capacity, self.device).reshape(g.grid_shape)
+        if self.data_structure == DataStructure.COMPACT_ARRAY:
+            capacity = compact_capacity(len(live))
+            self.grid = self.base_grid
+            self.state = state_from_numpy(live, capacity, self.run_device)
+            desc = f"compact capacity {capacity}"
+        else:
+            self.grid = g = _grid_for(
+                live, self.base_grid, meta.box_width,
+                meta.species(0).force0_r(), box_height=meta.box_height,
+            )
+            # per-bucket placed counts seed the readback sizes (bucketize
+            # fills slots ascending and drops past cap)
+            bxi = (live["x"] >> np.uint32(32 - g.bx_log2)).astype(np.int64)
+            byi = (live["y"] >> np.uint32(32 - g.by_log2)).astype(np.int64)
+            occ = np.minimum(np.bincount(bxi + byi * g.bx, minlength=g.buckets), g.cap)
+            self._readback_k = pow2_at_least(int(occ.max(initial=0)))
+            self._readback_ncap = pow2_at_least(len(live))
+            self._readback_low_streak = 0
+            layout = bucketize_numpy(live, g)
+            self.state = state_from_numpy(layout, g.capacity, self.run_device).reshape(
+                g.grid_shape)
+            desc = f"grid {g.bx}x{g.by}x{g.cap}"
         self._set_meta(rec)
         print(
-            f"engine: scene loaded ({len(live)} live, grid {g.bx}x{g.by}x{g.cap}, "
-            f"{self.device}, bucketize {bucketize_s:.2f}s)",
+            f"engine: scene loaded ({len(live)} live, {desc}, {self.run_device}, "
+            f"layout {time.perf_counter() - t0:.2f}s)",
             file=sys.stderr,
         )
 
     def update_metadata(self, frame: Frame) -> None:
         """Metadata-only frame (particle_count == 0): a live reconfigure that
-        takes effect on the next dispatch; the particles are untouched.
-        Out-of-range enum bytes are ignored (the running values stay)."""
+        takes effect on the next dispatch. A change of the data structure,
+        or of the device in effect, reads the running particles back and
+        lays them out again (the JAX engine's live switch); otherwise the
+        particles are untouched. Out-of-range enum bytes are ignored (the
+        running values stay)."""
         if self.meta_record is None:
             return
         new = frame.metadata.copy()
         try:
-            _check_request(DataStructure(int(new["data_structure"])),
-                           Device(int(new["device"])))
+            requested_ds = DataStructure(int(new["data_structure"]))
+            requested_dev = Device(int(new["device"]))
         except ValueError:
-            pass
+            requested_ds, requested_dev = self.data_structure, self.active_device
+        _, active_device = self._target_device(requested_dev)
+        if requested_ds != self.data_structure or active_device != self.active_device:
+            parts = state_to_numpy(self.state)
+            self.load_frame(Frame.from_particles(new, parts[parts["ty"] >= 0]))
+            return
         new["data_structure"] = int(self.data_structure)
         new["device"] = int(self.active_device)
         self._set_meta(new)
 
     # -- frame stepping ---------------------------------------------------------
     def frame_async(self) -> None:
-        """Enqueue one frame (steps_per_frame steps) and return."""
+        """Enqueue one frame (steps_per_frame steps) and return. The
+        wrappers launch the CUDA kernels for a state on the card and run the
+        plain versions for a state on the CPU."""
         if self.state is None:
             return
         steps = self.params.steps_per_frame
-        move_every = self.grid.move_every
-        if self.device.type == "cuda":
-            self.state = run_frame_bucket_cuda(self.state, self._pvec, steps, move_every)
-            self.active_kernel = "bucket-cuda"
+        where = "cuda" if self.run_device.type == "cuda" else "torch-cpu"
+        if self.data_structure == DataStructure.COMPACT_ARRAY:
+            self.state = run_frame_allpairs_cuda(self.state, self._pvec, steps)
+            self.active_kernel = f"allpairs-{where}"
         else:
-            self.state = run_frame_bucket(self.state, self._pvec, steps, move_every)
-            self.active_kernel = "bucket-torch-cpu"
+            self.state = run_frame_bucket_cuda(self.state, self._pvec, steps,
+                                               self.grid.move_every)
+            self.active_kernel = f"bucket-{where}"
 
     # -- readback ----------------------------------------------------------------
     def start_readback(self, state: Optional[ParticleState] = None) -> ReadbackTicket:
-        """Pack ``state`` (default: the current one) on the device and start
-        its copy to the host; ``read_frame`` consumes the ticket."""
+        """Start the device -> host copy of ``state`` (default: the current
+        one): the dense pack of a bucket grid, or a whole CompactArray
+        state; ``read_frame`` consumes the ticket."""
         state = self.state if state is None else state
-        k = min(self._readback_k, state.x.shape[-1])
-        ncap = self._readback_ncap
-        if self.device.type != "cuda":
-            return ReadbackTicket(state, *dense_readback(state, k, ncap), k, ncap)
-        with torch.cuda.device(self.device):  # the pack, copies and event share its stream
+        if state.x.dim() == 1:
+            scalars, packed, k, ncap = None, state, None, None
+        else:
+            k = min(self._readback_k, state.x.shape[-1])
+            ncap = self._readback_ncap
             scalars, packed = dense_readback(state, k, ncap)
+        if not state.x.is_cuda:
+            return ReadbackTicket(state, scalars, packed, k, ncap)
+        with torch.cuda.device(state.x.device):  # the pack, copies and event share its stream
             host = []
-            for t in (scalars, *packed):
+            for t in (*([] if scalars is None else [scalars]), *packed):
                 h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                 h.copy_(t, non_blocking=True)
                 host.append(h)
             event = torch.cuda.Event()
             event.record()
-        return ReadbackTicket(state, host[0], ParticleState(*host[1:]), k, ncap, event)
+        if scalars is not None:
+            scalars, host = host[0], host[1:]
+        return ReadbackTicket(state, scalars, ParticleState(*host), k, ncap, event)
 
     def read_frame(self, state=None, meta: Optional[np.ndarray] = None) -> Frame:
         """The live particles of a ticket (or of ``state``, default the
         current one) as a wire frame stamped with ``meta`` (default: the
-        current metadata)."""
+        current metadata). A CompactArray state ships its live slots in slot
+        order, as the JAX engine does."""
         ticket = state if isinstance(state, ReadbackTicket) else self.start_readback(state)
         rec = self.meta_record if meta is None else meta
         if ticket.event is not None:
             ticket.event.synchronize()
+        if ticket.scalars is None:
+            parts = state_to_numpy(ticket.packed)
+            # the boolean-mask gather is a fresh array: hand it over
+            return Frame.from_particles(rec, parts[parts["ty"] >= 0], owned=True)
         mx, total = (int(v) for v in ticket.scalars.tolist())
         k, ncap = ticket.k, ticket.ncap
         if mx > k or total > ncap:

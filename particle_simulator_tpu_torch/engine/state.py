@@ -16,7 +16,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from particle_simulator_tpu.io.frame import PARTICLE_DTYPE, default_metadata
+from particle_simulator_tpu_torch.io.frame import PARTICLE_DTYPE, default_metadata
 
 U32_MAX_F = np.float32(4294967295.0)
 HALF_U32 = 2147483647  # UINT32_MAX / 2 with C integer division

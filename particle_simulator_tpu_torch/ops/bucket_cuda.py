@@ -28,11 +28,10 @@ LAUNCHES = {"step": 0, "dest": 0, "place": 0}
 _DTYPES = (torch.int32, torch.int32, torch.float32, torch.float32, torch.int32)
 
 
-def _on_cuda(state: ParticleState) -> bool:
-    """Validate a (BY, BX, CAP) state; True for CUDA, False for the CPU."""
+def check_fields(state: ParticleState) -> bool:
+    """Validate the five fields' dtypes, shapes, devices and contiguity;
+    True for CUDA, False for the CPU, and raise for any other device."""
     shape, device = state.x.shape, state.x.device
-    if len(shape) != 3:
-        raise ValueError(f"expected a (BY, BX, CAP) grid, got shape {tuple(shape)}")
     for name, a, dtype in zip(ParticleState._fields, state, _DTYPES):
         if a.dtype != dtype:
             raise TypeError(f"field {name}: expected {dtype}, got {a.dtype}")
@@ -41,11 +40,6 @@ def _on_cuda(state: ParticleState) -> bool:
                              f"differ from x's {tuple(shape)}/{device}")
         if not a.is_contiguous():
             raise ValueError(f"field {name} is not contiguous")
-    bucket.grid_log2(state)
-    if shape[0] < 2 or shape[1] < 2:
-        raise ValueError(f"grid must be at least 2x2 buckets, got {shape[0]}x{shape[1]}")
-    if state.capacity >= 2**31:
-        raise ValueError(f"{state.capacity} slots exceed the int32 slot ids")
     if device.type == "cpu":
         return False
     if device.type != "cuda":
@@ -54,7 +48,20 @@ def _on_cuda(state: ParticleState) -> bool:
     return True
 
 
-def _check_aux(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+def _on_cuda(state: ParticleState) -> bool:
+    """Validate a (BY, BX, CAP) state; True for CUDA, False for the CPU."""
+    shape = state.x.shape
+    if len(shape) != 3:
+        raise ValueError(f"expected a (BY, BX, CAP) grid, got shape {tuple(shape)}")
+    bucket.grid_log2(state)
+    if shape[0] < 2 or shape[1] < 2:
+        raise ValueError(f"grid must be at least 2x2 buckets, got {shape[0]}x{shape[1]}")
+    if state.capacity >= 2**31:
+        raise ValueError(f"{state.capacity} slots exceed the int32 slot ids")
+    return check_fields(state)
+
+
+def check_aux(t: torch.Tensor, name: str, dtype, shape, device) -> None:
     if t.dtype != dtype or tuple(t.shape) != tuple(shape) or t.device != device:
         raise ValueError(f"{name}: expected {dtype} {tuple(shape)} on {device}, "
                          f"got {t.dtype} {tuple(t.shape)} on {t.device}")
@@ -62,7 +69,7 @@ def _check_aux(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} is not contiguous")
 
 
-def _launch(name: str, *args) -> None:
+def launch(name: str, *args) -> None:
     from particle_simulator_tpu_torch.ops.build import library
 
     fn = getattr(library(), name)
@@ -75,14 +82,14 @@ def bucket_step_cuda(state: ParticleState, params: torch.Tensor) -> ParticleStat
     """One physics step (cursor, wall, 3x3 Mie pairs, leapfrog); ``params``
     is the (10,) f32 vector of ``SimParams.vector`` on the state's device."""
     on_cuda = _on_cuda(state)
-    _check_aux(params, "params", torch.float32, (NPARAMS,), state.x.device)
+    check_aux(params, "params", torch.float32, (NPARAMS,), state.x.device)
     if not on_cuda:
         return bucket.bucket_step(state, params)
     by, bx, cap = state.x.shape
     with torch.cuda.device(state.x.device):
         out = [torch.empty_like(a) for a in state[:4]]
-        _launch("ps_bucket_step", *(a.data_ptr() for a in state), params.data_ptr(),
-                *(o.data_ptr() for o in out), by, bx, cap)
+        launch("ps_bucket_step", *(a.data_ptr() for a in state), params.data_ptr(),
+               *(o.data_ptr() for o in out), by, bx, cap)
     LAUNCHES["step"] += 1
     return ParticleState(*out, state.ty)
 
@@ -95,8 +102,8 @@ def move_dest_cuda(state: ParticleState) -> torch.Tensor:
     bx_log2, by_log2 = bucket.grid_log2(state)
     with torch.cuda.device(state.x.device):
         destid = torch.empty_like(state.ty)
-        _launch("ps_bucket_dest", state.x.data_ptr(), state.y.data_ptr(),
-                state.ty.data_ptr(), destid.data_ptr(), by, bx, cap, bx_log2, by_log2)
+        launch("ps_bucket_dest", state.x.data_ptr(), state.y.data_ptr(),
+               state.ty.data_ptr(), destid.data_ptr(), by, bx, cap, bx_log2, by_log2)
     LAUNCHES["dest"] += 1
     return destid
 
@@ -104,13 +111,13 @@ def move_dest_cuda(state: ParticleState) -> torch.Tensor:
 def bucket_place_cuda(state: ParticleState, destid: torch.Tensor) -> ParticleState:
     """Move kept particles to their ``destid`` slots, tombstone the rest."""
     on_cuda = _on_cuda(state)
-    _check_aux(destid, "destid", torch.int32, state.x.shape, state.x.device)
+    check_aux(destid, "destid", torch.int32, state.x.shape, state.x.device)
     if not on_cuda:
         return bucket.bucket_place(state, destid)
     with torch.cuda.device(state.x.device):
         out = [torch.empty_like(a) for a in state]
-        _launch("ps_bucket_place", *(a.data_ptr() for a in state), destid.data_ptr(),
-                *(o.data_ptr() for o in out), state.capacity)
+        launch("ps_bucket_place", *(a.data_ptr() for a in state), destid.data_ptr(),
+               *(o.data_ptr() for o in out), state.capacity)
     LAUNCHES["place"] += 1
     return ParticleState(*out)
 

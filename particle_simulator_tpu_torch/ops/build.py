@@ -1,11 +1,12 @@
-"""Build and load the bucket kernels (``ops/csrc/*.cu``).
+"""Build and load the port's CUDA kernels (``ops/csrc/*.cu``).
 
 ``nvcc`` compiles every ``.cu`` file under ``csrc/`` for Hopper (``sm_90a``)
 into one shared library with a plain C interface,
-``particle_simulator_tpu_torch/build/libbucket_kernels.so``, which is loaded
-with ``ctypes``. The build runs at first use and again only when the sources
-or flags change (a SHA-256 of both is stamped beside the library). Fast math
-is never on: the step kernel needs full-precision ``logf``/``expf``.
+``particle_simulator_tpu_torch/build/libps_kernels.so``, which is loaded with
+``ctypes``. The build runs at first use and again only when the sources or
+flags change (a SHA-256 of both is stamped beside the library). The files
+compile in parallel, one ``nvcc`` each, and link once. Fast math is never
+on: the step kernels need full-precision ``logf``/``expf``.
 """
 
 from __future__ import annotations
@@ -20,10 +21,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-LIB_NAME = "libbucket_kernels.so"
+LIB_NAME = "libps_kernels.so"
+BUILD_LOG = "build.log"  # what nvcc and ptxas said, beside the library
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, shared memory and spills per kernel, in BUILD_LOG
 )
 
 _P = ctypes.c_void_p
@@ -37,6 +40,10 @@ _SIGNATURES = {
     "ps_bucket_dest": [_P] * 4 + [_I] * 5 + [_P],
     # x, y, vx, vy, ty, destid, ox, oy, ovx, ovy, oty, n, stream
     "ps_bucket_place": [_P] * 11 + [ctypes.c_long, _P],
+    # x, y, vx, vy, ty, params, ox, oy, ovx, ovy, n, stream
+    "ps_allpairs_step": [_P] * 10 + [_I, _P],
+    # pairs per iteration of the all-pairs kernel's main loop
+    "ps_allpairs_pairs_per_iter": [],
 }
 
 
@@ -80,15 +87,31 @@ def build() -> Path:
         return lib
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, lib)
+    tag = f"{os.getpid()}.tmp"
+    objs = [BUILD_DIR / f".{src.stem}.{tag}.o" for src in sources()]
+    tmp = BUILD_DIR / f".{LIB_NAME}.{tag}"
+    try:
+        # one nvcc per source, all at once, then one link
+        procs = [
+            (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                   text=True))
+            for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                        for src, obj in zip(sources(), objs))
+        ]
+        steps = [(cmd, proc.communicate()[1], proc.returncode) for cmd, proc in procs]
+        if all(rc == 0 for _, _, rc in steps):
+            cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            steps.append((cmd, proc.stderr, proc.returncode))
+        for cmd, err, rc in steps:
+            if rc != 0:
+                raise KernelBuildError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{err}")
+        os.replace(tmp, lib)
+        log = "".join(f"$ {' '.join(cmd)}\n{err}" for cmd, err, _ in steps)
+        (BUILD_DIR / BUILD_LOG).write_text(log)
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
     stamp.write_text(digest)
     return lib
 

@@ -28,49 +28,11 @@
 // Pallas kernel's lane rolls, lane-validity table, lane chunking and
 // occupancy pass skips exist for the TPU's vector unit and are not carried
 // over. Shared-memory tiling of the neighbourhood is left for later work.
+// The force law itself (cursor, wall, pair term, leapfrog) is shared with
+// the all-pairs kernel in ps_common.cuh.
 #include "bucket_common.cuh"
 
 namespace {
-
-struct StepScalars {
-  float A1, B1, A2, B2, inv_s2, sg1, sg2;  // log-domain pair constants
-  float ce_m;                               // C*eps*m of the wall force
-  float sigma, m, dt, bw, bh, curx, cury, cur_r2;
-};
-
-// physics/mie.py:mie_log_coeffs_scalars, with its degenerate-sigma clamps
-__device__ void step_scalars(const float* p, StepScalars& s) {
-  const float sigma = p[P_SIGMA], eps = p[P_EPS], n = p[P_N], m = p[P_M];
-  const float C = __fmul_rn(__fdiv_rn(n, __fsub_rn(n, m)),
-                            expf(__fmul_rn(__fdiv_rn(m, __fsub_rn(n, m)), logf(__fdiv_rn(n, m)))));
-  const float s2_raw = __fmul_rn(sigma, sigma);
-  const bool degenerate = s2_raw < PS_F32_TINY;
-  const float s2 = fmaxf(s2_raw, PS_F32_TINY);
-  const float ce_s2 = __fdiv_rn(__fmul_rn(C, eps), s2);
-  const float t1 = __fmul_rn(ce_s2, m), t2 = __fmul_rn(ce_s2, n);
-  s.A1 = degenerate ? -INFINITY : logf(fminf(fabsf(t1), PS_F32_HUGE));
-  s.A2 = degenerate ? -INFINITY : logf(fminf(fabsf(t2), PS_F32_HUGE));
-  s.B1 = __fmul_rn(__fadd_rn(m, 2.0f), 0.5f);
-  s.B2 = __fmul_rn(__fadd_rn(n, 2.0f), 0.5f);
-  s.inv_s2 = __fdiv_rn(1.0f, s2);
-  s.sg1 = t1 < 0.0f ? -1.0f : 1.0f;
-  s.sg2 = t2 < 0.0f ? -1.0f : 1.0f;
-  s.ce_m = __fmul_rn(__fmul_rn(C, eps), m);
-  s.sigma = sigma;
-  s.m = m;
-  s.dt = p[P_DT];
-  s.bw = p[P_BW];
-  s.bh = p[P_BH];
-  s.curx = p[P_CURX];
-  s.cury = p[P_CURY];
-  s.cur_r2 = __fmul_rn(__fmul_rn(p[P_CURSZ], p[P_CURSZ]), 0.25f);
-}
-
-// repulsive-only Mie wall force at distance `dist`
-__device__ __forceinline__ float wall_rep(const StepScalars& s, float dist) {
-  return __fdiv_rn(__fmul_rn(s.ce_m, expf(__fmul_rn(s.m, logf(__fdiv_rn(s.sigma, dist))))),
-                   dist);
-}
 
 __global__ void bucket_step_kernel(
     const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
@@ -97,38 +59,10 @@ __global__ void bucket_step_kernel(
     return;
   }
 
-  const float xf = __uint2float_rn(xi), yf = __uint2float_rn(yi);
-
-  // Every f32 operation below is an explicit round-to-nearest intrinsic, in
-  // the plain version's order: no multiply-add contracts into an FMA, so the
-  // kernel rounds exactly where the plain version does. That matters: the
-  // pair forces on a relaxed lattice cancel to nearly zero, and the cursor
-  // radius test is a threshold.
-
-  // cursor force
-  const float dxc = __fsub_rn(sc.curx, __fdiv_rn(xf, PS_U32_MAX_F));
-  const float dyc = __fsub_rn(sc.cury, __fdiv_rn(yf, PS_U32_MAX_F));
-  const float sq = __fadd_rn(__fmul_rn(dxc, dxc), __fmul_rn(dyc, dyc));
-  float fx = 0.0f, fy = 0.0f;
-  if (sq < sc.cur_r2) {
-    const float mag = __fdiv_rn(8e-12f, __fadd_rn(sq, 1.0f));
-    fx = dxc > 0.0f ? -mag : mag;
-    fy = dyc > 0.0f ? -mag : mag;
-  }
-
-  // wall force, from whichever half of the box the particle is in
-  const bool left = xi < 2147483647u;
-  const bool bottom = yi < 2147483647u;
-  const float dist_x =
-      __fmul_rn(__fdiv_rn(left ? xf : __fsub_rn(PS_U32_MAX_F, xf), PS_U32_MAX_F), sc.bw);
-  const float dist_y =
-      __fmul_rn(__fdiv_rn(bottom ? yf : __fsub_rn(PS_U32_MAX_F, yf), PS_U32_MAX_F), sc.bh);
-  fx = __fadd_rn(fx, __fmul_rn(left ? 1.0f : -1.0f, wall_rep(sc, dist_x)));
-  fy = __fadd_rn(fy, __fmul_rn(bottom ? 1.0f : -1.0f, wall_rep(sc, dist_y)));
+  float fx, fy;
+  external_force(sc, xi, yi, fx, fy);
 
   // 3x3 neighbourhood pair forces, fixed candidate order
-  const float scale_x = __fdiv_rn(sc.bw, PS_U32_MAX_F);
-  const float scale_y = __fdiv_rn(sc.bh, PS_U32_MAX_F);
   const int b = (int)(i / cap);
   const int cbx = b % bx, cby = b / bx;
   for (int dy = -1; dy <= 1; ++dy) {
@@ -141,30 +75,16 @@ __global__ void bucket_step_kernel(
       for (int s = 0; s < cap; ++s) {
         const long j = base + s;
         if (j == i || __ldg(ty + j) < 0) continue;
-        const float ddx = __fmul_rn(__int2float_rn((int32_t)(__ldg(x + j) - xi)), scale_x);
-        const float ddy = __fmul_rn(__int2float_rn((int32_t)(__ldg(y + j) - yi)), scale_y);
-        const float d2 = __fadd_rn(__fmul_rn(ddx, ddx), __fmul_rn(ddy, ddy));
-        const float lu = logf(__fmul_rn(d2, sc.inv_s2));
-        const float f = __fsub_rn(__fmul_rn(sc.sg1, expf(__fsub_rn(sc.A1, __fmul_rn(sc.B1, lu)))),
-                                  __fmul_rn(sc.sg2, expf(__fsub_rn(sc.A2, __fmul_rn(sc.B2, lu)))));
+        const float ddx = __fmul_rn(__int2float_rn((int32_t)(__ldg(x + j) - xi)), sc.scale_x);
+        const float ddy = __fmul_rn(__int2float_rn((int32_t)(__ldg(y + j) - yi)), sc.scale_y);
+        const float f = pair_f_over_r(sc, __fadd_rn(__fmul_rn(ddx, ddx), __fmul_rn(ddy, ddy)));
         fx = __fadd_rn(fx, __fmul_rn(f, ddx));
         fy = __fadd_rn(fy, __fmul_rn(f, ddy));
       }
     }
   }
 
-  // leapfrog kick-drift in u32 fixed point; __float2int_rn rounds half to
-  // even like torch.round, saturates and maps NaN to 0 like XLA's f32->s32
-  const float nvx = __fadd_rn(vxi, __fmul_rn(__fdiv_rn(fx, PS_PARTICLE_MASS), sc.dt));
-  const float nvy = __fadd_rn(vyi, __fmul_rn(__fdiv_rn(fy, PS_PARTICLE_MASS), sc.dt));
-  const int ddx = __float2int_rn(
-      __fmul_rn(__fdiv_rn(__fmul_rn(nvx, sc.dt), sc.bw), PS_U32_MAX_F));
-  const int ddy = __float2int_rn(
-      __fmul_rn(__fdiv_rn(__fmul_rn(nvy, sc.dt), sc.bh), PS_U32_MAX_F));
-  ox[i] = xi + (uint32_t)ddx;
-  oy[i] = yi + (uint32_t)ddy;
-  ovx[i] = nvx;
-  ovy[i] = nvy;
+  leapfrog(sc, xi, yi, vxi, vyi, fx, fy, ox[i], oy[i], ovx[i], ovy[i]);
 }
 
 }  // namespace

@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from particle_simulator_tpu.io.frame import PARTICLE_DTYPE
+from particle_simulator_tpu_torch.io.frame import PARTICLE_DTYPE
 from particle_simulator_tpu_torch.engine.state import ParticleState
 
 

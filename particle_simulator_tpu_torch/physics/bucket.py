@@ -23,7 +23,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from particle_simulator_tpu.io.frame import PARTICLE_DTYPE
+from particle_simulator_tpu_torch.io.frame import PARTICLE_DTYPE
 from particle_simulator_tpu_torch.engine.state import ParticleState, empty_state
 from particle_simulator_tpu_torch.physics.mie import (
     bucket_of,

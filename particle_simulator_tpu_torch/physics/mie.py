@@ -207,10 +207,8 @@ def pair_force_accum(xi, yi, xj, yj, tyj, params: torch.Tensor, exclude=None,
     agree to the bit wherever the math library does (the sum of a relaxed
     lattice cancels to nearly zero, so another summation order moves the
     result by more than the terms' own rounding)."""
-    u32_max = _const(params, U32_MAX_F)
-    scale_x = params[BW] / u32_max
-    scale_y = params[BH] / u32_max
-    A1, B1, A2, B2, inv_s2, s1, s2 = mie_log_coeffs(params)
+    scale_x, scale_y = pair_scales(params)
+    coeffs = mie_log_coeffs(params)
     if fx is None:
         fx = torch.zeros(xi.shape, dtype=F32, device=xi.device)
     if fy is None:
@@ -221,10 +219,26 @@ def pair_force_accum(xi, yi, xj, yj, tyj, params: torch.Tensor, exclude=None,
         valid = tyj[..., k:k + 1] >= 0
         if exclude is not None:
             valid = valid & ~exclude[..., k]
-        d2 = torch.where(valid, dx * dx + dy * dy, 1.0)
-        lu = torch.log(d2 * inv_s2)
-        f_over_r = s1 * torch.exp(A1 - B1 * lu) - s2 * torch.exp(A2 - B2 * lu)
-        f_over_r = torch.where(valid, f_over_r, 0.0)
-        fx = fx + f_over_r * dx
-        fy = fy + f_over_r * dy
+        tx, ty = pair_terms(dx, dy, valid, coeffs)
+        fx = fx + tx
+        fy = fy + ty
     return fx, fy
+
+
+def pair_scales(params: torch.Tensor):
+    """Meters per u32 unit along x and y."""
+    u32_max = _const(params, U32_MAX_F)
+    return params[BW] / u32_max, params[BH] / u32_max
+
+
+def pair_terms(dx, dy, valid, coeffs):
+    """The force terms ``(F/r*dx, F/r*dy)`` of the pairs with displacement
+    ``dx``/``dy`` (meters); ``coeffs`` is ``mie_log_coeffs(params)``. An
+    invalid pair takes a safe distance, so no NaN leaks, and adds
+    ``+0 * dx``: the same signed zero the kernels add."""
+    A1, B1, A2, B2, inv_s2, s1, s2 = coeffs
+    d2 = torch.where(valid, dx * dx + dy * dy, 1.0)
+    lu = torch.log(d2 * inv_s2)
+    f_over_r = s1 * torch.exp(A1 - B1 * lu) - s2 * torch.exp(A2 - B2 * lu)
+    f_over_r = torch.where(valid, f_over_r, 0.0)
+    return f_over_r * dx, f_over_r * dy

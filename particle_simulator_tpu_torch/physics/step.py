@@ -1,16 +1,33 @@
-"""Forces shared by every data-structure path.
+"""Step functions: the forces every path shares, the all-pairs
+(CompactArray) step and its frame runner.
 
-Counterpart of ``particle_simulator_tpu/physics/step.py``; only
-``external_forces`` is ported so far (the all-pairs CompactArray path is
-queued in ROADMAP.md).
+Counterpart of ``particle_simulator_tpu/physics/step.py``. The reference's
+CompactArray kernel is an exact O(N^2) force loop, one thread per particle;
+``allpairs_step`` here is its plain PyTorch version on a flat ``(N,)``
+state, and what ``ops/allpairs_cuda.py`` runs for CPU tensors and what
+``chip_smoke.py`` holds the CUDA kernel (``ops/csrc/allpairs_step.cu``)
+against on the card. ``allpairs_step_euler`` is not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
 from particle_simulator_tpu_torch.engine.state import ParticleState
-from particle_simulator_tpu_torch.physics.mie import cursor_force, wall_force
+from particle_simulator_tpu_torch.physics.mie import (
+    cursor_force,
+    leapfrog_apply,
+    mie_log_coeffs,
+    pair_scales,
+    pair_terms,
+    wall_force,
+)
+
+# elements of one (N, rows) pass of the vectorized pair terms: bounds the
+# plain step's memory at large N (16,384 particles -> 4,096 receivers a pass)
+PASS_ELEMENTS = 1 << 26
 
 
 def external_forces(state: ParticleState, params: torch.Tensor):
@@ -18,3 +35,61 @@ def external_forces(state: ParticleState, params: torch.Tensor):
     fcx, fcy = cursor_force(state.x, state.y, params)
     fwx, fwy = wall_force(state.x, state.y, params)
     return fcx + fwx, fcy + fwy
+
+
+def allpairs_forces(state: ParticleState, params: torch.Tensor):
+    """Cursor, wall and all-pairs Mie forces on every slot of a flat state.
+
+    Each receiver's sum starts from its cursor + wall force and adds the
+    pair terms of j = 0, 1, ..., N-1 one at a time, each add rounded as its
+    own f32 op: the kernel's per-thread order, so the two agree to the bit
+    wherever the math library does. The self pair and tombstoned j add
+    ``+0 * dx``. The terms of a block of receivers are computed in one
+    vectorized pass as an (N, rows) tensor (elementwise ops round the same
+    whatever the shape); only the adds go column by column."""
+    n = state.x.shape[0]
+    fx, fy = external_forces(state, params)
+    scale_x, scale_y = pair_scales(params)
+    coeffs = mie_log_coeffs(params)
+    xj, yj = state.x[:, None], state.y[:, None]
+    live_j = state.ty[:, None] >= 0
+    j = torch.arange(n, device=state.x.device)[:, None]
+    rows = max(1, PASS_ELEMENTS // max(n, 1))
+    out_x, out_y = [], []
+    for i0 in range(0, n, rows):
+        i1 = min(n, i0 + rows)
+        i = torch.arange(i0, i1, device=state.x.device)[None, :]
+        dx = (xj - state.x[None, i0:i1]).to(torch.float32) * scale_x  # [j, i] = x_j - x_i
+        dy = (yj - state.y[None, i0:i1]).to(torch.float32) * scale_y
+        tx, ty = pair_terms(dx, dy, live_j & (j != i), coeffs)
+        ax, ay = fx[i0:i1].clone(), fy[i0:i1].clone()
+        for k in range(n):
+            ax.add_(tx[k])
+            ay.add_(ty[k])
+        out_x.append(ax)
+        out_y.append(ay)
+    return torch.cat(out_x), torch.cat(out_y)
+
+
+def allpairs_step(state: ParticleState, params: torch.Tensor) -> ParticleState:
+    """One physics step with all-pairs forces (CompactArray semantics):
+    cursor + wall + Mie pairs, then leapfrog. ``ty`` passes through and
+    tombstones are unchanged."""
+    fx, fy = allpairs_forces(state, params)
+    nx, ny, nvx, nvy = leapfrog_apply(
+        state.x, state.y, state.vx, state.vy, state.ty, fx, fy, params
+    )
+    return ParticleState(nx, ny, nvx, nvy, state.ty)
+
+
+def run_frame(
+    state: ParticleState,
+    params: torch.Tensor,
+    steps: int,
+    step_fn: Callable[[ParticleState, torch.Tensor], ParticleState] = allpairs_step,
+) -> ParticleState:
+    """One frame of ``steps`` physics steps. ``steps`` is a plain int, so a
+    live steps-per-frame edit changes nothing but the loop count."""
+    for _ in range(steps):
+        state = step_fn(state, params)
+    return state

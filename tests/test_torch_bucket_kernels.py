@@ -293,4 +293,4 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
         build.build()
     assert not (tmp_path / "build" / build.LIB_NAME).exists()
     assert [p.name for p in build.sources()] == [
-        "bucket_dest.cu", "bucket_place.cu", "bucket_step.cu"]
+        "allpairs_step.cu", "bucket_dest.cu", "bucket_place.cu", "bucket_step.cu"]

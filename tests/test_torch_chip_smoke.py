@@ -1,0 +1,67 @@
+"""The CPU-side helpers of ``chip_smoke.py``: the SASS loop count that sets
+the arithmetic bounds, the bound arithmetic, the bucket-step pair count and
+the place library call. The card's own phases run only on the card."""
+
+import numpy as np
+import torch
+
+import chip_smoke
+from particle_simulator_tpu_torch.engine.state import state_from_numpy
+from particle_simulator_tpu_torch.physics import bucket
+
+# the shape of `cuobjdump -sass` output: an outer loop (0x0040 -> 0x00e0)
+# around two inner loops; the second inner loop holds more MUFU.EX2
+SASS = """
+\t\tFunction : _ZN12_GLOBAL__N_1other_kernelEv
+        /*0000*/                   MUFU.EX2 R1, R1 ;   /* 0x0 */
+        /*0010*/                   BRA 0x0 ;           /* 0x0 */
+\t\tFunction : _ZN12_GLOBAL__N_120allpairs_step_kernelEPKj
+        /*0000*/                   S2R R8, SR_TID.X ;  /* 0x0 */
+        /*0010*/                   ISETP.NE.AND P0, PT, R8, RZ, PT ;
+        /*0020*/               @P0 BRA 0x100 ;
+        /*0030*/                   MOV R2, RZ ;
+        /*0040*/                   LDS R3, [R2] ;
+        /*0050*/                   MUFU.EX2 R4, R3 ;
+        /*0060*/              @!P1 BRA 0x40 ;
+        /*0070*/                   FFMA R5, R4, R3, R5 ;
+        /*0080*/                   FMUL R6, R5, R5 ;
+        /*0090*/                   MUFU.EX2 R7, R6 ;
+        /*00a0*/                   MUFU.EX2 R8, R6 ;
+        /*00b0*/                   I2FP.F32.S32 R9, R8 ;
+        /*00c0*/                   FADD R9, R9, R7 ;
+        /*00d0*/               @P2 BRA 0x70 ;
+        /*00e0*/                   BRA 0x30 ;
+        /*0100*/                   EXIT ;
+"""
+
+
+def test_main_loop_sass_picks_the_inner_loop_with_most_ex2():
+    loop = chip_smoke.main_loop_sass(SASS, "allpairs_step_kernel")
+    assert loop == ["FFMA", "FMUL", "MUFU.EX2", "MUFU.EX2", "I2FP.F32.S32", "FADD", "BRA"]
+
+
+def test_bounds_from_pair_counts():
+    counts = {"fp32_per_pair": 50.0, "mufu_per_pair": 2.0}
+    pairs = 16384 * 16383
+    ms = chip_smoke.ops_bound_ms(pairs, counts)
+    # 50 f32 instructions a pair at 67e12/2 a second outweigh 2 MUFU at 1/8 that
+    assert np.isclose(ms, 1e3 * pairs * 50 / (67e12 / 2))
+    assert chip_smoke.bound(36 * 16384, ms) == {"bound_ms": ms, "bound_by": "operations"}
+    by_bytes = chip_smoke.bound(44 * 2**20)
+    assert by_bytes["bound_by"] == "bytes"
+    assert np.isclose(by_bytes["bound_ms"], 1e3 * 44 * 2**20 / 3.35e12)
+
+
+def test_bucket_pairs_and_place_library_call():
+    cfg = bucket.GridConfig(3, 3, 8)
+    parts, _, live = chip_smoke.dense_grid_scene(cfg)
+    state = state_from_numpy(parts, cfg.capacity).reshape(cfg.grid_shape)
+    nbr = bucket.gather_neighborhood(state)
+    own = bucket._self_pair_mask(cfg.cap, "cpu")
+    valid = (nbr.ty[..., None, :] >= 0) & ~own & (state.ty[..., :, None] >= 0)
+    assert chip_smoke.bucket_pairs(state) == int(valid.sum()) > 0
+    destid = bucket.move_dest_direct(state)
+    table, _ = chip_smoke.place_library_call(state, destid, 1, timer=lambda fn, reps: 0.0)
+    placed = bucket.bucket_place(state, destid)
+    assert torch.equal(table, torch.stack([a.reshape(-1).view(torch.int32) for a in placed], 1))
+    assert live == int((state.ty >= 0).sum())

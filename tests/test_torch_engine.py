@@ -1,6 +1,9 @@
-"""The port's serving slice against the JAX package: Simulator frames, the
-daemon over TCP against the unchanged headless editor, the readback
-pipeline's wire stream, the unported requests, and the no-jax rule.
+"""The port's serving slice against the JAX package: Simulator frames on
+both data structures, the daemon over TCP against the unchanged headless
+editor, the readback pipeline's wire stream, the device requests and live
+switches, and the rule that the port imports neither jax nor the JAX
+package. Frames and scenes travel through the port's own codec
+(``particle_simulator_tpu_torch.io``); the JAX engine reads the same bytes.
 
 Envelope for frames after physics steps (tests/test_pallas.py's frame
 envelope): ``ty`` equal, x/y within 16 fixed-point units, vx/vy within
@@ -20,16 +23,16 @@ import pytest
 import torch
 
 from particle_simulator_tpu.engine.simulator import Simulator as JSimulator
-from particle_simulator_tpu.io.frame import DataStructure, Device, Frame
-from particle_simulator_tpu.io.presets import ParticleLattice
-from particle_simulator_tpu.io.transport import new_tcp_server
+from particle_simulator_tpu_torch.io.frame import DataStructure, Device, Frame
+from particle_simulator_tpu_torch.io.presets import ParticleLattice
+from particle_simulator_tpu_torch.io.transport import new_tcp_server
 from particle_simulator_tpu.physics.bucket import GridConfig as JGridConfig
-from particle_simulator_tpu.scenes.library import _scene
 import particle_simulator_tpu_torch
 from particle_simulator_tpu_torch.engine import daemon
 from particle_simulator_tpu_torch.engine.daemon import Frontend, main_loop, serve
 from particle_simulator_tpu_torch.engine.simulator import Simulator
 from particle_simulator_tpu_torch.physics.bucket import GridConfig
+from particle_simulator_tpu_torch.scenes.library import _scene
 
 torch.set_num_threads(2)
 
@@ -256,25 +259,144 @@ def _with(frame: Frame, **fields) -> Frame:
     return frame
 
 
-@pytest.mark.parametrize("field, value", [
-    ("data_structure", DataStructure.COMPACT_ARRAY),
-    ("device", Device.CPU_THREAD_POOL),
-    ("device", Device.CPU_MAIN_THREAD),
-])
-def test_unported_requests_raise(field, value):
-    scene = _lattice_frame()
-    sim = Simulator(GridConfig(4, 4, 8), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sim.load_frame(_with(scene, **{field: value}))
-    sim.load_frame(scene)
+def _metadata_only(scene: Frame, **fields) -> Frame:
     edit = Frame.new()
     edit.header["metadata"] = scene.metadata.copy()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sim.update_metadata(_with(edit, **{field: value}))
-    # garbage enum bytes are ignored, as in the JAX engine
-    edit.header["metadata"]["device"] = 77
+    for name, value in fields.items():
+        setattr(edit.metadata, name, value)
+    assert edit.particle_count == 0
+    return edit
+
+
+def _live_data_structure_switch(scene, sim, n):
+    """MatrixBuckets -> CompactArray -> back, live, with no particle lost
+    (tests/test_daemon.py:test_metadata_only_frame_switches_data_structure_live)."""
+    for ds, kernel in ((DataStructure.COMPACT_ARRAY, "allpairs-torch-cpu"),
+                       (DataStructure.MATRIX_BUCKETS, "bucket-torch-cpu")):
+        sim.update_metadata(_metadata_only(scene, data_structure=ds))
+        assert sim.data_structure == ds
+        assert sim.live_count == n
+        for _ in range(2):
+            sim.frame_async()
+        assert sim.active_kernel == kernel and sim.live_count == n
+        out = sim.read_frame()
+        assert out.metadata.data_structure == ds
+        assert out.particle_count == n and np.isfinite(out.particles["vx"]).all()
+    assert sim.state.x.dim() == 3
+
+
+def _live_device_switch(scene, sim, n):
+    """A device change re-lays the running scene out on the new device;
+    the wire echoes the device in effect
+    (tests/test_daemon.py:test_metadata_only_frame_switches_device_live)."""
+    assert sim.active_device == Device.CPU_THREAD_POOL
+    sim.update_metadata(_metadata_only(scene, device=Device.CPU_MAIN_THREAD))
+    assert sim.active_device == Device.CPU_MAIN_THREAD and sim.live_count == n
+    sim.frame_async()
+    out = sim.read_frame()
+    assert out.metadata.device == Device.CPU_MAIN_THREAD and out.particle_count == n
+    # a GPU request on a Simulator without a card runs on the CPU pool
+    sim.update_metadata(_metadata_only(scene, device=Device.GPU))
+    assert sim.active_device == Device.CPU_THREAD_POOL and sim.live_count == n
+    assert sim.read_frame().metadata.device == Device.CPU_THREAD_POOL
+
+
+def _garbage_enums_ignored(scene, sim, n):
+    """Out-of-range enum bytes keep the running values; the params still
+    apply (tests/test_daemon.py:test_metadata_only_frame_with_garbage_enums_is_ignored)."""
+    edit = _metadata_only(scene)
+    edit.header["metadata"]["device"] = 7
+    edit.header["metadata"]["data_structure"] = 9
+    edit.header["metadata"]["steps_per_frame"] = 3
     sim.update_metadata(edit)
+    assert sim.data_structure == DataStructure.MATRIX_BUCKETS
+    assert sim.active_device == Device.CPU_THREAD_POOL
+    assert int(sim.meta_record["steps_per_frame"]) == 3
     assert int(sim.meta_record["device"]) == Device.CPU_THREAD_POOL
+    sim.frame_async()
+    assert sim.live_count == n
+
+
+@pytest.mark.parametrize("case", [_live_data_structure_switch, _live_device_switch,
+                                  _garbage_enums_ignored], ids=lambda f: f.__name__[1:])
+def test_live_switches(case):
+    scene = _lattice_frame(n=8, steps=2)
+    sim = Simulator(GridConfig(4, 4, 8), device="cpu")
+    sim.load_frame(scene)
+    for _ in range(2):
+        sim.frame_async()
+    case(scene, sim, scene.particle_count)
+
+
+@pytest.mark.parametrize("ds", list(DataStructure))
+@pytest.mark.parametrize("dev", list(Device))
+def test_requests_echo_like_jax(ds, dev):
+    """Every (data structure, device) request: the echoed scene is the JAX
+    engine's, byte for byte, on a host without an accelerator."""
+    scene = _with(_lattice_frame(n=6, steps=2), data_structure=ds, device=dev)
+    sim = Simulator(GridConfig(4, 4, 8), device="cpu")
+    sim.load_frame(scene)
+    jsim = JSimulator(JGridConfig(4, 4, 8))
+    jsim.load_frame(scene)
+    assert (sim.data_structure, sim.active_device) == (jsim.data_structure, jsim.active_device)
+    assert sim.read_frame().bytes == jsim.read_frame().bytes
+    assert sim.state.x.device.type == "cpu"
+    assert sim.state.x.dim() == (1 if ds == DataStructure.COMPACT_ARRAY else 3)
+
+
+def test_compact_slice_matches_jax_simulator():
+    """CompactArray frames on the CPU against the JAX engine's: the echo
+    byte for byte (live first, in slot order, 1024 slots), then two
+    20-step frames within the frame envelope."""
+    frame = _with(_scene(10, 10, distance_factor=1.1, speed=20.0, box_fill=0.5,
+                         steps_per_frame=20), data_structure=DataStructure.COMPACT_ARRAY)
+    jsim = JSimulator()
+    jsim.load_frame(frame)
+    sim = Simulator(device="cpu")
+    sim.load_frame(frame)
+    assert sim.state.x.shape == (1024,) == jsim.state.x.shape
+    assert sim.read_frame().bytes == jsim.read_frame().bytes
+    for _ in range(2):
+        jsim.frame_async()
+        sim.frame_async()
+        assert_frame_envelope(sim.read_frame(), jsim.read_frame())
+    assert sim.active_kernel == "allpairs-torch-cpu"
+    assert sim.live_count == frame.particle_count
+
+
+def test_daemon_scene_reset_switches_data_structure():
+    """A scene reset switches MatrixBuckets -> CompactArray mid-run
+    (tests/test_daemon.py:test_daemon_data_structure_switch_mid_run), over
+    the port's own transport."""
+    server = new_tcp_server(("127.0.0.1", 0))
+    sim = Simulator(GridConfig(4, 4, 8), device="cpu")
+    t = threading.Thread(
+        target=serve, args=(("127.0.0.1", server.addr[1]), sim),
+        kwargs=dict(retry_s=10.0), daemon=True,
+    )
+    t.start()
+    reader, writer = _accept(server)
+    try:
+        scene = _lattice_frame(n=8, steps=2)
+        assert writer.write(scene)
+        first = _read_until(reader, lambda f: True)
+        assert first.metadata.data_structure == DataStructure.MATRIX_BUCKETS
+        compact = _with(_lattice_frame(n=6, steps=2), data_structure=DataStructure.COMPACT_ARRAY)
+        assert writer.write(compact)
+        echo = _read_until(reader, lambda f: f.particle_count == compact.particle_count)
+        assert echo.metadata.data_structure == DataStructure.COMPACT_ARRAY
+        assert echo.particles.tobytes() == compact.particles.tobytes()  # slot order
+        nxt = _read_until(reader, lambda f: True)
+        assert nxt.metadata.data_structure == DataStructure.COMPACT_ARRAY
+        assert nxt.particle_count == compact.particle_count
+        assert np.isfinite(nxt.particles["vx"]).all()
+    finally:
+        reader.close()
+        writer.close()
+        server.close()
+    t.join(timeout=60)
+    assert not t.is_alive(), "daemon did not exit after the editor closed"
+    assert sim.active_kernel == "allpairs-torch-cpu"
 
 
 def test_default_device_is_cuda_and_never_falls_back():
@@ -300,6 +422,9 @@ def test_port_never_imports_jax():
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.'))\n"
         "assert not bad, bad\n"
+        "ref = sorted(k for k in sys.modules if k == 'particle_simulator_tpu'\n"
+        "             or k.startswith('particle_simulator_tpu.'))\n"
+        "assert not ref, ref\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
