@@ -35,7 +35,28 @@ exits non-zero without printing a result):
    more frames come back through the bucket kernels; every frame finite,
    the echoed data structure right on each side, every kernel launched;
 8. all-pairs throughput: 100-step frames of ``run_frame_allpairs_cuda`` at
-   16,384, in sim-steps/s and pair evaluations/s.
+   16,384, in sim-steps/s and pair evaluations/s;
+9. halo kernels: the step, dest and place in their halo modes against their
+   plain versions (bit-identical), on the block of four halo-padded shards
+   of a (2, 2) split of the dense scene (4 x 258 x 130 x 8) and of the
+   stress scene (crossers migrate in from the ring); kernel, plain and
+   library-call times on the dense block;
+10. sharded frame: three 100-step frames of the dense scene on a (2, 2)
+    mesh of four shards on the one card, bit-identical to
+    ``run_frame_bucket_cuda`` (ty everywhere, x/y/vx/vy on live slots);
+    frame times of both runners, in turns, the host's time to enqueue one
+    frame of each, and the device's busy share over two frames of each
+    (``torch.profiler``);
+11. mesh slice: the 1024x1024 editor lattice served through
+    ``Simulator(mesh=make_mesh(devices=[cuda:0] * 4))`` to the unchanged
+    headless editor: frame period median and p90 at the daemon's wire
+    writes, every halo kernel launched and no single-device bucket kernel;
+    the same serve on one device for comparison; then the device's busy
+    share over a steady window (from the third frame on) of a profiled
+    serve of each.
+
+On a machine with more than one card, phases 10 and 11 run once more on a
+mesh of every card, one shard a card.
 
 The last three lines are the card's ``nvidia-smi`` line, the kernels JSON
 line and the result line. It exits non-zero when
@@ -44,6 +65,7 @@ line and the result line. It exits non-zero when
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -61,6 +83,11 @@ STEP_KERNEL = "particle_simulator_tpu/ops/bucket_pallas.py:123"  # _step_kernel
 DEST_KERNEL = "particle_simulator_tpu/ops/bucket_pallas.py:1228"  # _dest_kernel
 PLACE_KERNEL = "particle_simulator_tpu/ops/bucket_pallas.py:1573"  # _place_kernel
 ALLPAIRS_KERNEL = "particle_simulator_tpu/ops/allpairs_pallas.py:44"  # _allpairs_kernel
+# the halo modes, by their pl.pallas_call sites
+STEP_HALO_KERNEL = "particle_simulator_tpu/ops/bucket_pallas.py:750"  # edge_rows/halo_cols
+DEST_HALO_KERNEL = "particle_simulator_tpu/ops/bucket_pallas.py:1536"  # _dest_kernel(halo=True)
+PLACE_HALO_KERNEL = "particle_simulator_tpu/ops/bucket_pallas.py:2143"  # _place_edge_kernel
+HALO_KERNELS = ("step_halo", "dest_halo", "place_halo")
 CSRC = "particle_simulator_tpu_torch/ops/csrc"
 
 # The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): 3.35 TB/s
@@ -317,6 +344,19 @@ def bucket_pairs(state) -> int:
     return int((live_i * (live_j[..., None] - 1)).sum())
 
 
+def halo_pairs(padded) -> int:
+    """Pair evaluations of one halo step on this stack of padded shards:
+    live interior receivers times their live 3x3-neighbourhood candidates,
+    ring included, self excluded."""
+    import torch
+
+    from particle_simulator_tpu_torch.physics import bucket
+
+    live_j = (bucket.stack9(padded).ty >= 0).sum(-1, dtype=torch.int64)
+    live_i = (bucket.interior(padded).ty >= 0).to(torch.int64)
+    return int((live_i * (live_j[..., None] - 1)).sum())
+
+
 def phase_kernels(device, dense_cfg, stress_cfg, reps: int, sass: dict):
     """Phase 3: each kernel against its plain version on the same inputs."""
     import torch
@@ -383,18 +423,26 @@ def phase_kernels(device, dense_cfg, stress_cfg, reps: int, sass: dict):
     return results
 
 
-def place_library_call(state, destid, reps: int, timer=cuda_ms):
+def place_library_call(state, destid, reps: int, timer=cuda_ms, out_grid=None):
     """The place function as one PyTorch call: ``torch.index_copy`` of the
     kept particles' five fields (bit patterns, one int32 row each) into a
-    tombstone-filled table. Packing the rows is not timed. Returns the
-    (slots, 5) table and its time in ms."""
+    tombstone-filled table. For a stack of halo-padded shards, ``out_grid``
+    is each shard's interior shape and a shard's ids are offset by its
+    place in the stack. Packing the rows is not timed. Returns the
+    (output slots, 5) table and its time in ms."""
     import torch
 
-    src = destid.reshape(-1) >= 0
-    idx = destid.reshape(-1)[src].long()
-    rows = torch.stack([a.reshape(-1).view(torch.int32) for a in state], 1)[src]
+    out_grid = tuple(state.x.shape[-3:]) if out_grid is None else tuple(out_grid)
+    n_out = int(np.prod(out_grid))
+    n_src = int(np.prod(state.x.shape[-3:]))
+    n_grids = state.capacity // n_src
+    d = destid.reshape(n_grids, n_src)
+    src = d >= 0
+    base = torch.arange(n_grids, device=d.device)[:, None] * n_out
+    idx = (d.long() + base)[src]
+    rows = torch.stack([a.reshape(n_grids, n_src).view(torch.int32) for a in state], -1)[src]
     fill = torch.tensor([0, 0, 0, 0, -1], dtype=torch.int32, device=rows.device)
-    tombs = fill.expand(state.capacity, 5).contiguous()
+    tombs = fill.expand(n_grids * n_out, 5).contiguous()
     return (torch.index_copy(tombs, 0, idx, rows),
             timer(lambda: torch.index_copy(tombs, 0, idx, rows), reps))
 
@@ -405,8 +453,91 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def phase_slice(device, lattice: str, frames: int, workdir: str):
-    """Phase 4: the unchanged headless editor against the port's daemon."""
+@contextlib.contextmanager
+def ship_times():
+    """The host time of every frame the port's daemon writes to the wire,
+    appended to the yielded list while the context is open."""
+    from particle_simulator_tpu_torch.engine import daemon
+
+    times = []
+    original = daemon.Frontend.__dict__["connect_tcp"]
+
+    class Timed(daemon.Frontend):
+        def write(self, frame):
+            super().write(frame)
+            times.append(time.perf_counter())
+
+    def connect_timed(addr, retry_s=0.0, native=False):
+        inner = original.__func__(addr, retry_s=retry_s, native=native)
+        return Timed(inner.reader, inner.writer, verbose=inner.verbose)
+
+    daemon.Frontend.connect_tcp = staticmethod(connect_timed)
+    try:
+        yield times
+    finally:
+        daemon.Frontend.connect_tcp = original
+
+
+def device_busy(fn, window_kernel: str | None = None, skip: int = 0):
+    """Run ``fn`` under ``torch.profiler`` (CUDA activity only); return (its
+    result, ``busy_summary`` of the device operations it recorded)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        result = fn()
+        torch.cuda.synchronize()
+    ops = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+           if e.device_type == DeviceType.CUDA]
+    return result, busy_summary(ops, window_kernel, skip)
+
+
+def busy_summary(ops, window_kernel: str | None = None, skip: int = 0):
+    """Device operations (start us, end us, name) -> a dict: the device's
+    busy share of the window (a kernel, copy or fill running), its idle ms
+    after the operations that most often precede a gap, and its busy ms by
+    operation name; None without operations. The window is the span from
+    the first to the last operation, or, with ``window_kernel``, from the
+    start of the ``skip``-th launch of the kernel whose name holds it to the
+    end of its last launch (a steady window past the scene load)."""
+    ops = sorted(ops)
+    if not ops:
+        return None
+    lo, hi = ops[0][0], max(end for _, end, _ in ops)
+    if window_kernel is not None:
+        marks = [(start, end) for start, end, name in ops if window_kernel in name]
+        if len(marks) > skip:
+            lo, hi = marks[skip][0], marks[-1][1]
+    busy, idle_after, by_name = 0.0, {}, {}
+    cur_start = cur_end = last = None
+    for start, end, name in ops:
+        start, end = max(start, lo), min(end, hi)
+        if end <= start:
+            continue
+        by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3
+        if cur_end is None or start > cur_end:
+            if cur_end is not None:
+                busy += cur_end - cur_start
+                idle_after[last] = idle_after.get(last, 0.0) + (start - cur_end) / 1e3
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+        if end >= cur_end:
+            last = name
+    busy += cur_end - cur_start
+    top = sorted(idle_after.items(), key=lambda kv: -kv[1])[:4]
+    names = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"busy_share": busy / max(hi - lo, 1e-9), "window_ms": (hi - lo) / 1e3,
+            "idle_ms_after": {k[:60]: round(v, 4) for k, v in top},
+            "busy_ms_by_op": {k[:60]: round(v, 4) for k, v in names}}
+
+
+def phase_slice(device, lattice: str, frames: int, workdir: str, mesh=None,
+                profile: bool = False):
+    """Phases 4 and 11: the unchanged headless editor against the port's
+    daemon, on one device or sharded over ``mesh``; with ``profile``, the
+    device's busy share over the serve."""
     from particle_simulator_tpu_torch.io.transport import Disconnected, Reader
     from particle_simulator_tpu_torch.engine import daemon
     from particle_simulator_tpu_torch.engine.simulator import Simulator
@@ -419,17 +550,24 @@ def phase_slice(device, lattice: str, frames: int, workdir: str):
            "--addr", f"127.0.0.1:{port}", "--lattice", lattice,
            "--distance-factor", "1.1", "--step-dt", "1e-14",
            "--frames", str(frames), "--timeout", "600"]
-    sim = Simulator(device=device)
+    sim = Simulator(device=device, mesh=mesh)
+
+    def serve():
+        return daemon.serve(("127.0.0.1", port), sim, max_frames=frames, retry_s=120.0,
+                            record=record)
+
     with open(editor_log, "w") as log:
         editor = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
                                   cwd=os.path.dirname(os.path.abspath(__file__)))
         try:
             for k in bc.LAUNCHES:
                 bc.LAUNCHES[k] = 0
-            t0 = time.perf_counter()
-            shipped = daemon.serve(("127.0.0.1", port), sim, max_frames=frames,
-                                   retry_s=120.0, record=record)
-            serve_s = time.perf_counter() - t0
+            with ship_times() as times:
+                t0 = time.perf_counter()
+                # the steady window starts with the third frame's first step
+                steady = dict(window_kernel="bucket_step_kernel", skip=200)
+                shipped, busy = device_busy(serve, **steady) if profile else (serve(), None)
+                serve_s = time.perf_counter() - t0
             launches = dict(bc.LAUNCHES)
             rc = editor.wait(timeout=300)
         finally:
@@ -441,7 +579,8 @@ def phase_slice(device, lattice: str, frames: int, workdir: str):
             raise AssertionError(f"editor exited {rc}:\n{f.read()[-4000:]}")
     if shipped != frames:
         raise AssertionError(f"daemon shipped {shipped} of {frames} frames")
-    if sim.active_kernel != ("bucket-cuda" if device.startswith("cuda") else "bucket-torch-cpu"):
+    runner = "sharded" if mesh is not None else "bucket"
+    if sim.active_kernel != f"{runner}-{'cuda' if device.startswith('cuda') else 'torch-cpu'}":
         raise AssertionError(f"frames ran through {sim.active_kernel}")
     counts = []
     reader = Reader.open_file(record)
@@ -462,12 +601,20 @@ def phase_slice(device, lattice: str, frames: int, workdir: str):
     nx, ny = (int(v) for v in lattice.split("x"))
     if counts[0] != nx * ny:  # the echo of the scene the editor sent
         raise AssertionError(f"echoed {counts[0]} particles of {nx * ny}")
-    if min(launches.values()) == 0:
+    path = HALO_KERNELS if mesh is not None else ("step", "dest", "place")
+    if any(launches[k] == 0 for k in path):
         raise AssertionError(f"a kernel never launched on the main path: {launches}")
+    if any(launches[k] for k in bc.LAUNCHES if k not in path):
+        raise AssertionError(f"a kernel of another path launched: {launches}")
+    periods = np.diff(times[2:]) * 1e3  # after the echo and the first frame
     line = {"frames": frames, "particles": counts, "grid": list(sim.grid.grid_shape),
-            "active_kernel": sim.active_kernel, "launches": launches,
-            "serve_s": serve_s}
-    print("slice: " + json.dumps(line), flush=True)
+            "mesh": None if mesh is None else list(mesh.shape),
+            "active_kernel": sim.active_kernel, "launches": launches, "serve_s": serve_s,
+            "frame_period_ms": {"median": float(np.median(periods)),
+                                "p90": float(np.percentile(periods, 90)),
+                                "all": [round(float(v), 3) for v in periods]},
+            "profiled": profile, "device": busy}
+    print(("mesh slice: " if mesh is not None else "slice: ") + json.dumps(line), flush=True)
     return line
 
 
@@ -627,7 +774,8 @@ def phase_compact_slice(device, compact_frames: int, bucket_frames: int):
     serve_s = time.perf_counter() - t0
     if thread.is_alive():
         raise AssertionError("the engine did not stop after the editor closed")
-    launches = {**counters[0], **counters[1]}
+    launches = {k: v for k, v in {**counters[0], **counters[1]}.items()
+                if k in ("allpairs", "step", "dest", "place")}
     compact = [c for ds, c in frames if ds == "COMPACT_ARRAY"]
     if any(c != n for c in compact):
         raise AssertionError(f"CompactArray frames lost particles: {compact}")
@@ -674,6 +822,182 @@ def phase_allpairs_throughput(device, frames: int, steps: int):
             "steps_per_frame": steps, "seconds": dt, "sim_steps_per_s": rate,
             "pair_evaluations_per_s": rate * live * (live - 1)}
     print("allpairs throughput: " + json.dumps(line), flush=True)
+    return line
+
+
+def one_card_mesh(device: str):
+    """A (2, 2) mesh of four shards on one card."""
+    import torch
+
+    from particle_simulator_tpu_torch.parallel.domain import make_mesh
+
+    return make_mesh(devices=[torch.device(device)] * 4)
+
+
+def phase_halo_kernels(device, dense_cfg, stress_cfg, reps: int, sass: dict):
+    """Phase 9: the three halo kernels against their plain versions on the
+    block of four halo-padded shards of a (2, 2) split."""
+    import torch
+
+    from particle_simulator_tpu_torch.engine.state import SimParams, state_from_numpy
+    from particle_simulator_tpu_torch.ops import bucket_cuda as bc
+    from particle_simulator_tpu_torch.parallel import domain
+    from particle_simulator_tpu_torch.physics import bucket
+
+    mesh = one_card_mesh(device)
+    results = {}
+    scenes = {"dense": dense_grid_scene(dense_cfg)[:2], "stress": stress_scene(stress_cfg)}
+    cfgs = {"dense": dense_cfg, "stress": stress_cfg}
+    for label, (parts, meta) in scenes.items():
+        cfg = cfgs[label]
+        state = state_from_numpy(parts, cfg.capacity, device).reshape(cfg.grid_shape)
+        pv = SimParams.from_record(meta).vector(device)
+        (padded,) = domain.exchange_halo(domain.shard_state(state, mesh), mesh)
+        (offsets,) = domain.ring_plan(mesh, padded.x.shape[1] - 2, padded.x.shape[2] - 2).offsets
+        log2 = (cfg.bx_log2, cfg.by_log2)
+
+        got, ref = bc.bucket_step_halo_cuda(padded, pv), bucket.bucket_step_halo(padded, pv)
+        for name, a, b in zip(got._fields, got, ref):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{label}: halo step field {name} differs")
+        live = bucket.interior(ref).ty >= 0
+        step_err = max((bucket.interior(got)[i][live] - bucket.interior(ref)[i][live])
+                       .abs().max().item() for i in (2, 3))
+        dest = bc.move_dest_halo_cuda(padded, *log2, offsets)
+        dest_ref = bucket.move_dest_direct_halo(padded, *log2, offsets)
+        if not torch.equal(dest, dest_ref):
+            raise AssertionError(f"{label}: halo dest ids differ at "
+                                 f"{int((dest != dest_ref).sum())} slots")
+        placed = bc.bucket_place_halo_cuda(padded, dest_ref)
+        placed_ref = bucket.bucket_place_halo(padded, dest_ref)
+        for name, a, b in zip(placed._fields, placed, placed_ref):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{label}: halo place field {name} differs")
+        ring = dest_ref.clone()
+        ring[:, 1:-1, 1:-1] = -1
+        line = {"scene": label, "block": list(padded.x.shape), "mesh": list(mesh.shape),
+                "live_in_block": int((padded.ty >= 0).sum()),
+                "kept_by_move": int((dest_ref >= 0).sum()),
+                "migrating_in_from_ring": int((ring >= 0).sum()),
+                "step_max_abs_err_v": step_err}
+        if label == "stress" and not line["migrating_in_from_ring"]:
+            raise AssertionError("stress scene: no particle migrated in from a ring")
+        if label == "dense":
+            out_grid = placed.x.shape[-3:]
+            lib_place, lib_ms = place_library_call(padded, dest_ref, reps, out_grid=out_grid)
+            if not torch.equal(lib_place, torch.stack(
+                    [a.reshape(-1).view(torch.int32) for a in placed_ref], 1)):
+                raise AssertionError("index_copy disagrees with the halo place kernel")
+            src_slots, out_slots = padded.capacity, placed.x.numel()
+            pairs = halo_pairs(padded)
+            line["pairs_per_step"] = pairs
+            line["ms"] = {
+                "step": cuda_ms(lambda: bc.bucket_step_halo_cuda(padded, pv), reps),
+                "step_plain": cuda_ms(lambda: bucket.bucket_step_halo(padded, pv), reps),
+                "dest": cuda_ms(lambda: bc.move_dest_halo_cuda(padded, *log2, offsets), reps),
+                "dest_plain": cuda_ms(
+                    lambda: bucket.move_dest_direct_halo(padded, *log2, offsets), reps),
+                "place": cuda_ms(lambda: bc.bucket_place_halo_cuda(padded, dest_ref), reps),
+                "place_plain": cuda_ms(lambda: bucket.bucket_place_halo(padded, dest_ref), reps),
+                "place_library": lib_ms,
+            }
+            # each input read once, each output written once: the step reads
+            # 20 B and writes 16 B a padded slot (the ring passes through);
+            # dest reads x, y, ty and writes an id a padded slot, plus the
+            # offsets; place reads 24 B a padded slot and writes 20 B an
+            # interior slot
+            line["bounds"] = {
+                "step": bound(36 * src_slots, ops_bound_ms(pairs, sass)),
+                "dest": bound(16 * src_slots + offsets.numel() * 4),
+                "place": bound(24 * src_slots + 20 * out_slots),
+            }
+        results[label] = line
+        print("halo kernels: " + json.dumps(line), flush=True)
+    return results
+
+
+def phase_sharded_frame(device, cfg, frames: int, steps: int, timed: int, mesh=None):
+    """Phase 10: the sharded frame (by default on a (2, 2) one-card mesh)
+    against ``run_frame_bucket_cuda`` on the dense scene."""
+    import torch
+
+    from particle_simulator_tpu_torch.engine.state import (
+        ParticleState,
+        SimParams,
+        state_from_numpy,
+    )
+    from particle_simulator_tpu_torch.ops import bucket_cuda as bc
+    from particle_simulator_tpu_torch.ops.bucket_cuda import run_frame_bucket_cuda
+    from particle_simulator_tpu_torch.parallel import domain
+
+    parts, meta, live = dense_grid_scene(cfg)
+    state = state_from_numpy(parts, cfg.capacity, device).reshape(cfg.grid_shape)
+    pv = SimParams.from_record(meta).vector(device)
+    mesh = one_card_mesh(device) if mesh is None else mesh
+    fn = domain.make_sharded_frame_fn(cfg, mesh)
+    pvs = [pv.to(dev) for dev, _ in mesh.blocks]
+    single = state
+    blocks = domain.shard_state(domain.pad_rows_for_mesh(state, mesh)[0], mesh)
+    for k in bc.LAUNCHES:
+        bc.LAUNCHES[k] = 0
+    for i in range(frames):
+        single = run_frame_bucket_cuda(single, pv, steps, cfg.move_every)
+        blocks = fn(blocks, pvs, steps)
+        if i == 0:
+            per_frame = {k: v for k, v in bc.LAUNCHES.items() if k in HALO_KERNELS}
+    got = ParticleState(*(a[:cfg.by] for a in domain.gather_state(blocks, mesh)))
+    if not torch.equal(got.ty, single.ty):
+        raise AssertionError(f"sharded frame: ty differs at {int((got.ty != single.ty).sum())}")
+    alive = single.ty >= 0
+    for name, a, b in zip(got._fields[:4], got, single):
+        if not torch.equal(a[alive], b[alive]):
+            raise AssertionError(f"sharded frame: live {name} differs")
+    if not bool(torch.isfinite(single.vx[alive]).all()):
+        raise AssertionError("sharded frame: non-finite velocities")
+    all_slots = all(torch.equal(a, b) for a, b in zip(got, single))
+
+    def run(runner, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            runner()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    def one():
+        nonlocal single
+        single = run_frame_bucket_cuda(single, pv, steps, cfg.move_every)
+
+    def sharded():
+        nonlocal blocks
+        blocks = fn(blocks, pvs, steps)
+
+    def enqueue_ms(runner):
+        """Host time to enqueue one frame on an idle card (least of 3)."""
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runner()
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return best
+
+    # in turns: one device, mesh, mesh, one device
+    ms = [run(one, timed), run(sharded, timed), run(sharded, timed), run(one, timed)]
+    host = {"single_device": enqueue_ms(one), "sharded": enqueue_ms(sharded)}
+    busy = {"single_device": device_busy(lambda: run(one, 2))[1],
+            "sharded": device_busy(lambda: run(sharded, 2))[1]}
+    line = {"grid": list(cfg.grid_shape), "mesh": list(mesh.shape),
+            "devices": [str(d) for d in mesh.flat], "particles": live,
+            "survivors": int(alive.sum()), "frames_compared": frames,
+            "steps_per_frame": steps, "bit_identical_live": True,
+            "bit_identical_all_slots": all_slots,
+            "launches_per_sharded_frame": per_frame,
+            "frame_ms": {"single_device": [ms[0], ms[3]], "sharded": [ms[1], ms[2]]},
+            "sharded_over_single": (ms[1] + ms[2]) / (ms[0] + ms[3]),
+            "host_enqueue_ms_per_frame": host, "device": busy}
+    print("sharded frame: " + json.dumps(line), flush=True)
     return line
 
 
@@ -724,6 +1048,21 @@ def main() -> int:
     ap = phase_allpairs_kernel(device, reps=20, sass=sass)
     cs = phase_compact_slice(device, compact_frames=6, bucket_frames=3)
     phase_allpairs_throughput(device, frames=5, steps=100)
+    halo = phase_halo_kernels(device, dense_cfg, GridConfig(4, 4, 16), reps=20, sass=sass)
+    phase_sharded_frame(device, dense_cfg, frames=3, steps=100, timed=5)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as workdir:
+        msl = phase_slice(device, "1024x1024", 16, workdir, mesh=one_card_mesh(device))
+        # the same serve on one device, then both profiled
+        phase_slice(device, "1024x1024", 16, workdir)
+        for mesh in (None, one_card_mesh(device)):
+            phase_slice(device, "1024x1024", 8, workdir, mesh=mesh, profile=True)
+    if torch.cuda.device_count() > 1:
+        from particle_simulator_tpu_torch.parallel.domain import make_mesh
+
+        cards = make_mesh()
+        phase_sharded_frame(device, dense_cfg, frames=3, steps=100, timed=3, mesh=cards)
+        with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as workdir:
+            phase_slice(device, "1024x1024", 12, workdir, mesh=cards)
 
     if "jax" in sys.modules or any(m.split(".")[0] == "particle_simulator_tpu"
                                    for m in sys.modules):
@@ -743,9 +1082,22 @@ def main() -> int:
                      cs["launches"]["allpairs"], ap_err, gas["ms"]["kernel"],
                      gas["ms"]["plain"], gas["bound"], gas["library_ms"]),
     ]
-    print("library calls: bucket_step, bucket_dest, allpairs_step none (no single PyTorch "
-          "call computes the Mie step, the pull-order rank or the all-pairs forces); "
-          "bucket_place torch.index_copy into a tombstone table", flush=True)
+    hms, hbnd = halo["dense"]["ms"], halo["dense"]["bounds"]
+    herr = max(line["step_max_abs_err_v"] for line in halo.values())
+    kernels += [
+        kernel_entry("bucket_step_halo", "bucket_step.cu", STEP_HALO_KERNEL,
+                     msl["launches"]["step_halo"], herr, hms["step"], hms["step_plain"],
+                     hbnd["step"], None),
+        kernel_entry("bucket_dest_halo", "bucket_dest.cu", DEST_HALO_KERNEL,
+                     msl["launches"]["dest_halo"], 0.0, hms["dest"], hms["dest_plain"],
+                     hbnd["dest"], None),
+        kernel_entry("bucket_place_halo", "bucket_place.cu", PLACE_HALO_KERNEL,
+                     msl["launches"]["place_halo"], 0.0, hms["place"], hms["place_plain"],
+                     hbnd["place"], hms["place_library"]),
+    ]
+    print("library calls: bucket_step(_halo), bucket_dest(_halo), allpairs_step none (no "
+          "single PyTorch call computes the Mie step, the pull-order rank or the all-pairs "
+          "forces); bucket_place(_halo) torch.index_copy into a tombstone table", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,6 +1,6 @@
 """The engine daemon: the TCP main loop speaking the editor protocol.
 
-Counterpart of ``particle_simulator_tpu/engine/daemon.py`` on one device:
+Counterpart of ``particle_simulator_tpu/engine/daemon.py`` in one process:
 
 1. connect to the editor's TCP server as a client,
 2. wait until a frame with particles arrives,
@@ -10,7 +10,9 @@ Counterpart of ``particle_simulator_tpu/engine/daemon.py`` on one device:
    reads back and sends frame k.
 
 The wire codec and transport are the port's own copy (``io/``) of the frozen
-wire format, so the unchanged editor connects as before.
+wire format, so the unchanged editor connects as before. ``--devices N``
+shards the bucket grid over N CUDA devices of this host
+(``parallel/domain.py``).
 
 Run:  python -m particle_simulator_tpu_torch.engine.daemon [--addr HOST:PORT]
 """
@@ -24,6 +26,8 @@ import threading
 import time
 from collections import deque
 
+import torch
+
 from particle_simulator_tpu_torch.io.frame import Frame
 from particle_simulator_tpu_torch.io.transport import (
     Disconnected,
@@ -32,6 +36,7 @@ from particle_simulator_tpu_torch.io.transport import (
     new_tcp_client,
 )
 from particle_simulator_tpu_torch.engine.simulator import Simulator
+from particle_simulator_tpu_torch.parallel.domain import make_mesh
 from particle_simulator_tpu_torch.utils.profiling import StepMeter
 
 
@@ -282,6 +287,21 @@ def serve(addr=("127.0.0.1", 53123), sim: Simulator | None = None, max_frames=No
     return shipped
 
 
+def make_simulator(devices: str | None = None) -> Simulator:
+    """A CUDA ``Simulator``, sharded over a mesh of ``devices`` CUDA devices
+    (a count, or ``"all"``) when that is more than one. Raises when fewer
+    devices exist than asked for: a mesh never shrinks to fit."""
+    if devices == "all":
+        n = torch.cuda.device_count()
+    else:
+        n = 1 if devices is None else int(devices)
+    if n > 1:
+        mesh = make_mesh(n_devices=n)
+        print(f"engine: sharding over a {mesh.shape} device mesh", file=sys.stderr)
+        return Simulator(mesh=mesh)
+    return Simulator()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--addr", default="127.0.0.1:53123", help="editor TCP address")
@@ -302,12 +322,16 @@ def main(argv=None) -> int:
     ap.add_argument("--native-io", action="store_true",
                     help="use the C++ particle_io transport (native/) instead "
                          "of the Python codec for the editor connection")
+    ap.add_argument("--devices", default=None,
+                    help="shard the bucket grid over this many CUDA devices "
+                         "('all' = every visible one; default: one device); "
+                         "fails when fewer exist")
     args = ap.parse_args(argv)
+    sim = make_simulator(args.devices)
 
     if args.files:
         frontend = Frontend.open_files(f"{args.files}/backend_in.bin",
                                        f"{args.files}/backend_out.bin")
-        sim = Simulator()
         if not _wait_for_scene(frontend, sim):
             return 1
         return 0 if main_loop(frontend, sim, args.max_frames,
@@ -315,7 +339,7 @@ def main(argv=None) -> int:
                               ship_thread=args.ship_thread) else 1
 
     host, port = args.addr.rsplit(":", 1)
-    serve((host, int(port)), max_frames=args.max_frames, retry_s=args.retry_s,
+    serve((host, int(port)), sim, max_frames=args.max_frames, retry_s=args.retry_s,
           record=args.record, native_io=args.native_io,
           readback_depth=args.readback_pipeline, ship_thread=args.ship_thread)
     return 0

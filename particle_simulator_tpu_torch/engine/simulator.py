@@ -1,6 +1,6 @@
 """The simulator core: the scene on the device and its frame schedule.
 
-Counterpart of ``particle_simulator_tpu/engine/simulator.py`` on one device:
+Counterpart of ``particle_simulator_tpu/engine/simulator.py``:
 
 - ``load_frame`` lays the scene out for the requested data structure:
   MatrixBuckets picks a bucket grid for the scene's density (``_grid_for``)
@@ -27,6 +27,14 @@ request. A ``Simulator(device="cpu")`` has no card, so it serves ``GPU``
 requests on the CPU and echoes ``CPU_THREAD_POOL``, as the JAX engine does
 on a host without an accelerator. A CUDA ``Simulator`` needs the card: it
 never carries on on the CPU when the card was asked for.
+
+With a ``mesh`` (``parallel/domain.py``), a MatrixBuckets scene is sharded
+over the mesh's devices whatever the device request, as in the JAX engine:
+``bx`` grows until it tiles the mesh's x axis, tombstone rows pad the y axis,
+and every frame runs the sharded frame (halo kernels on CUDA meshes, their
+plain versions on CPU meshes). The readback gathers the shards onto the
+mesh's first device and drops the pad rows, then packs as on one device.
+CompactArray runs unsharded on the requested device.
 """
 
 from __future__ import annotations
@@ -51,6 +59,13 @@ from particle_simulator_tpu_torch.ops.readback import (
     dense_readback,
     dense_to_particles,
     pow2_at_least,
+)
+from particle_simulator_tpu_torch.parallel.domain import (
+    DeviceMesh,
+    gather_state,
+    make_sharded_frame_fn,
+    pad_rows_for_mesh,
+    shard_state,
 )
 from particle_simulator_tpu_torch.physics.bucket import (
     REFERENCE_GRID,
@@ -137,9 +152,11 @@ class Simulator:
     """Holds the scene on a device and advances it frame by frame.
     ``device`` is the card the ``GPU`` requests run on; it defaults to CUDA
     and must exist: there is no silent CPU fallback. ``device="cpu"`` runs
-    every request through the plain versions."""
+    every request through the plain versions. ``mesh`` (a ``DeviceMesh`` of
+    the same device type) shards the MatrixBuckets grid over its devices."""
 
-    def __init__(self, grid: GridConfig = REFERENCE_GRID, device="cuda"):
+    def __init__(self, grid: GridConfig = REFERENCE_GRID, device="cuda",
+                 mesh: Optional[DeviceMesh] = None):
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -149,11 +166,18 @@ class Simulator:
                 )
         elif self.device.type != "cpu":
             raise ValueError(f"unsupported device {self.device}")
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {self.device.type} Simulator cannot run on {mesh}")
+        self.mesh = mesh
+        self.sharded = False  # the state is the mesh's blocks (parallel/domain.py)
+        self._sharded_frame = None  # make_sharded_frame_fn of the loaded grid
         self.base_grid = grid
         self.grid = grid
-        self.state: Optional[ParticleState] = None
+        # one ParticleState, or a tuple of mesh blocks when sharded
+        self.state = None
         self.params: Optional[SimParams] = None
-        self._pvec: Optional[torch.Tensor] = None  # params on the state's device
+        # params on the state's device, or one per mesh block when sharded
+        self._pvec = None
         self.meta_record: Optional[np.ndarray] = None
         self.data_structure = DataStructure.MATRIX_BUCKETS
         # the device the state lives on, and the Device the wire echoes
@@ -166,7 +190,8 @@ class Simulator:
         self._readback_ncap = 1
         self._readback_low_streak = 0
         # the runner of the last frame_async: "bucket-cuda", "allpairs-cuda",
-        # "bucket-torch-cpu" or "allpairs-torch-cpu"
+        # "sharded-cuda", "bucket-torch-cpu", "allpairs-torch-cpu" or
+        # "sharded-torch-cpu"
         self.active_kernel: str | None = None
 
     def _target_device(self, requested: Device) -> tuple[torch.device, Device]:
@@ -183,7 +208,10 @@ class Simulator:
     def _set_meta(self, rec: np.ndarray) -> None:
         self.meta_record = rec
         self.params = SimParams.from_record(rec)
-        self._pvec = self.params.vector(self.run_device)
+        if self.sharded:
+            self._pvec = tuple(self.params.vector(dev) for dev, _ in self.mesh.blocks)
+        else:
+            self._pvec = self.params.vector(self.run_device)
 
     # -- scene / metadata ingest ----------------------------------------------
     def load_frame(self, frame: Frame) -> None:
@@ -198,16 +226,23 @@ class Simulator:
         parts = frame.particles
         live = parts[parts["ty"] >= 0]
         t0 = time.perf_counter()
+        self.sharded = False
         if self.data_structure == DataStructure.COMPACT_ARRAY:
             capacity = compact_capacity(len(live))
             self.grid = self.base_grid
             self.state = state_from_numpy(live, capacity, self.run_device)
             desc = f"compact capacity {capacity}"
         else:
-            self.grid = g = _grid_for(
+            g = _grid_for(
                 live, self.base_grid, meta.box_width,
                 meta.species(0).force0_r(), box_height=meta.box_height,
             )
+            if self.mesh is not None:
+                # grow bx until it tiles the mesh's (power-of-two) x axis;
+                # tombstone rows pad the y axis
+                while g.bx % self.mesh.shape[1]:
+                    g = GridConfig(g.bx_log2 + 1, g.by_log2 + 1, g.cap, g.move_every)
+            self.grid = g
             # per-bucket placed counts seed the readback sizes (bucketize
             # fills slots ascending and drops past cap)
             bxi = (live["x"] >> np.uint32(32 - g.bx_log2)).astype(np.int64)
@@ -217,12 +252,20 @@ class Simulator:
             self._readback_ncap = pow2_at_least(len(live))
             self._readback_low_streak = 0
             layout = bucketize_numpy(live, g)
-            self.state = state_from_numpy(layout, g.capacity, self.run_device).reshape(
-                g.grid_shape)
             desc = f"grid {g.bx}x{g.by}x{g.cap}"
+            if self.mesh is None:
+                self.state = state_from_numpy(layout, g.capacity, self.run_device).reshape(
+                    g.grid_shape)
+            else:
+                state = state_from_numpy(layout, g.capacity).reshape(g.grid_shape)
+                self.state = shard_state(pad_rows_for_mesh(state, self.mesh)[0], self.mesh)
+                self.sharded = True
+                self._sharded_frame = make_sharded_frame_fn(g, self.mesh)
+                desc += f" sharded over {self.mesh}"
         self._set_meta(rec)
+        where = "mesh" if self.sharded else self.run_device
         print(
-            f"engine: scene loaded ({len(live)} live, {desc}, {self.run_device}, "
+            f"engine: scene loaded ({len(live)} live, {desc}, {where}, "
             f"layout {time.perf_counter() - t0:.2f}s)",
             file=sys.stderr,
         )
@@ -244,7 +287,7 @@ class Simulator:
             requested_ds, requested_dev = self.data_structure, self.active_device
         _, active_device = self._target_device(requested_dev)
         if requested_ds != self.data_structure or active_device != self.active_device:
-            parts = state_to_numpy(self.state)
+            parts = state_to_numpy(self._grid_state())
             self.load_frame(Frame.from_particles(new, parts[parts["ty"] >= 0]))
             return
         new["data_structure"] = int(self.data_structure)
@@ -259,6 +302,11 @@ class Simulator:
         if self.state is None:
             return
         steps = self.params.steps_per_frame
+        if self.sharded:
+            self.state = self._sharded_frame(self.state, self._pvec, steps)
+            where = "cuda" if self.mesh.device_type == "cuda" else "torch-cpu"
+            self.active_kernel = f"sharded-{where}"
+            return
         where = "cuda" if self.run_device.type == "cuda" else "torch-cpu"
         if self.data_structure == DataStructure.COMPACT_ARRAY:
             self.state = run_frame_allpairs_cuda(self.state, self._pvec, steps)
@@ -269,11 +317,19 @@ class Simulator:
             self.active_kernel = f"bucket-{where}"
 
     # -- readback ----------------------------------------------------------------
+    def _grid_state(self) -> ParticleState:
+        """The scene as one state: a sharded grid gathered onto the mesh's
+        first device, pad rows dropped."""
+        if not self.sharded:
+            return self.state
+        state = gather_state(self.state, self.mesh)
+        return ParticleState(*(a[:self.grid.by] for a in state))
+
     def start_readback(self, state: Optional[ParticleState] = None) -> ReadbackTicket:
         """Start the device -> host copy of ``state`` (default: the current
         one): the dense pack of a bucket grid, or a whole CompactArray
         state; ``read_frame`` consumes the ticket."""
-        state = self.state if state is None else state
+        state = self._grid_state() if state is None else state
         if state.x.dim() == 1:
             scalars, packed, k, ncap = None, state, None, None
         else:
@@ -333,4 +389,5 @@ class Simulator:
     def live_count(self) -> int:
         if self.state is None:
             return 0
-        return int((self.state.ty >= 0).sum())
+        blocks = self.state if self.sharded else (self.state,)
+        return sum(int((b.ty >= 0).sum()) for b in blocks)

@@ -6,7 +6,15 @@ Counterpart of ``particle_simulator_tpu/ops/bucket_pallas.py``:
 - ``move_dest_cuda``    -> ``csrc/bucket_dest.cu``  (``_dest_kernel``)
 - ``bucket_place_cuda`` -> ``csrc/bucket_place.cu`` (``_place_kernel``)
 - ``bucket_move_cuda`` = dest then place; ``run_frame_bucket_cuda`` = the
-  frame schedule over step and move.
+  frame schedule over step and move;
+- the halo modes, which the sharded frame (``parallel/domain.py``) runs on a
+  stack of halo-padded shards (..., LY+2, LX+2, CAP):
+  ``bucket_step_halo_cuda``  -> ``csrc/bucket_step.cu`` with ``ring = 1``
+  (the step of ``bucket_step_pallas(edge_rows=..., halo_cols=...)``),
+  ``move_dest_halo_cuda``    -> ``csrc/bucket_dest.cu`` with ``ring = 1``
+  (``_dest_kernel(halo=True)``), ``bucket_place_halo_cuda`` ->
+  ``csrc/bucket_place.cu`` into the interior (``_place_edge_kernel``), and
+  ``bucket_move_halo_cuda`` = dest then place.
 
 Each wrapper checks dtype, shape, contiguity and device. A state on the CPU
 goes to the plain PyTorch version in ``physics/bucket.py``; a state on a
@@ -23,7 +31,8 @@ import torch
 from particle_simulator_tpu_torch.engine.state import NPARAMS, ParticleState
 from particle_simulator_tpu_torch.physics import bucket
 
-LAUNCHES = {"step": 0, "dest": 0, "place": 0}
+LAUNCHES = {"step": 0, "dest": 0, "place": 0,
+            "step_halo": 0, "dest_halo": 0, "place_halo": 0}
 
 _DTYPES = (torch.int32, torch.int32, torch.float32, torch.float32, torch.int32)
 
@@ -89,7 +98,7 @@ def bucket_step_cuda(state: ParticleState, params: torch.Tensor) -> ParticleStat
     with torch.cuda.device(state.x.device):
         out = [torch.empty_like(a) for a in state[:4]]
         launch("ps_bucket_step", *(a.data_ptr() for a in state), params.data_ptr(),
-               *(o.data_ptr() for o in out), by, bx, cap)
+               *(o.data_ptr() for o in out), 1, by, bx, cap, 0)
     LAUNCHES["step"] += 1
     return ParticleState(*out, state.ty)
 
@@ -103,7 +112,8 @@ def move_dest_cuda(state: ParticleState) -> torch.Tensor:
     with torch.cuda.device(state.x.device):
         destid = torch.empty_like(state.ty)
         launch("ps_bucket_dest", state.x.data_ptr(), state.y.data_ptr(),
-               state.ty.data_ptr(), destid.data_ptr(), by, bx, cap, bx_log2, by_log2)
+               state.ty.data_ptr(), None, destid.data_ptr(), 1, by, bx, cap,
+               bx_log2, by_log2, 0)
     LAUNCHES["dest"] += 1
     return destid
 
@@ -117,7 +127,7 @@ def bucket_place_cuda(state: ParticleState, destid: torch.Tensor) -> ParticleSta
     with torch.cuda.device(state.x.device):
         out = [torch.empty_like(a) for a in state]
         launch("ps_bucket_place", *(a.data_ptr() for a in state), destid.data_ptr(),
-               *(o.data_ptr() for o in out), state.capacity)
+               *(o.data_ptr() for o in out), 1, state.capacity, state.capacity)
     LAUNCHES["place"] += 1
     return ParticleState(*out)
 
@@ -135,3 +145,78 @@ def run_frame_bucket_cuda(state: ParticleState, params: torch.Tensor, steps: int
     return bucket.chunked_frame_schedule(
         state, steps, move_every, lambda s: bucket_step_cuda(s, params), bucket_move_cuda,
     )
+
+
+def _halo_grids(padded: ParticleState, bx_log2: int | None = None,
+                by_log2: int | None = None) -> tuple[bool, int, int, int, int]:
+    """Validate a stack of halo-padded shards (..., LY+2, LX+2, CAP); return
+    (on CUDA, number of shards, LY+2, LX+2, CAP)."""
+    shape = padded.x.shape
+    if len(shape) < 3 or shape[-3] < 3 or shape[-2] < 3:
+        raise ValueError(f"expected halo-padded (..., LY+2, LX+2, CAP) shards, got "
+                         f"shape {tuple(shape)}")
+    if padded.capacity >= 2**31:
+        raise ValueError(f"{padded.capacity} slots exceed the int32 slot ids")
+    for log2 in (bx_log2, by_log2):
+        if log2 is not None and not 1 <= log2 <= 31:
+            raise ValueError(f"grid log2 {log2} outside [1, 31]")
+    gy, gx, cap = shape[-3:]
+    return check_fields(padded), padded.capacity // (gy * gx * cap), gy, gx, cap
+
+
+def bucket_step_halo_cuda(padded: ParticleState, params: torch.Tensor) -> ParticleState:
+    """One physics step of the interior of every halo-padded shard; ring
+    slots and tombstones pass through, ``ty`` is the input's tensor."""
+    on_cuda, n, gy, gx, cap = _halo_grids(padded)
+    check_aux(params, "params", torch.float32, (NPARAMS,), padded.x.device)
+    if not on_cuda:
+        return bucket.bucket_step_halo(padded, params)
+    with torch.cuda.device(padded.x.device):
+        out = [torch.empty_like(a) for a in padded[:4]]
+        launch("ps_bucket_step", *(a.data_ptr() for a in padded), params.data_ptr(),
+               *(o.data_ptr() for o in out), n, gy, gx, cap, 1)
+    LAUNCHES["step_halo"] += 1
+    return ParticleState(*out, padded.ty)
+
+
+def move_dest_halo_cuda(padded: ParticleState, bx_log2: int, by_log2: int,
+                        offsets: torch.Tensor) -> torch.Tensor:
+    """Interior-numbered destination slot of every slot of every
+    halo-padded shard, -1 = dropped; ``bx_log2``/``by_log2`` describe the
+    global grid, ``offsets`` is int32 (..., 2): each shard's global
+    (row, column) bucket offsets."""
+    on_cuda, n, gy, gx, cap = _halo_grids(padded, bx_log2, by_log2)
+    check_aux(offsets, "offsets", torch.int32, (*padded.x.shape[:-3], 2), padded.x.device)
+    if not on_cuda:
+        return bucket.move_dest_direct_halo(padded, bx_log2, by_log2, offsets)
+    with torch.cuda.device(padded.x.device):
+        destid = torch.empty_like(padded.ty)
+        launch("ps_bucket_dest", padded.x.data_ptr(), padded.y.data_ptr(),
+               padded.ty.data_ptr(), offsets.data_ptr(), destid.data_ptr(), n, gy, gx, cap,
+               bx_log2, by_log2, 1)
+    LAUNCHES["dest_halo"] += 1
+    return destid
+
+
+def bucket_place_halo_cuda(padded: ParticleState, destid: torch.Tensor) -> ParticleState:
+    """Move the kept slots of every halo-padded shard, ring included, to
+    their ``destid`` slots of the shard's (..., LY, LX, CAP) interior;
+    tombstone the rest."""
+    on_cuda, n, gy, gx, cap = _halo_grids(padded)
+    check_aux(destid, "destid", torch.int32, padded.x.shape, padded.x.device)
+    if not on_cuda:
+        return bucket.bucket_place_halo(padded, destid)
+    shape = (*padded.x.shape[:-3], gy - 2, gx - 2, cap)
+    with torch.cuda.device(padded.x.device):
+        out = [torch.empty(shape, dtype=a.dtype, device=a.device) for a in padded]
+        launch("ps_bucket_place", *(a.data_ptr() for a in padded), destid.data_ptr(),
+               *(o.data_ptr() for o in out), n, gy * gx * cap, (gy - 2) * (gx - 2) * cap)
+    LAUNCHES["place_halo"] += 1
+    return ParticleState(*out)
+
+
+def bucket_move_halo_cuda(padded: ParticleState, bx_log2: int, by_log2: int,
+                          offsets: torch.Tensor) -> ParticleState:
+    """The shard-local rebucket and migration pass: halo dest, then halo
+    place, (..., LY+2, LX+2, CAP) -> (..., LY, LX, CAP)."""
+    return bucket_place_halo_cuda(padded, move_dest_halo_cuda(padded, bx_log2, by_log2, offsets))

@@ -34,12 +34,12 @@ _I = ctypes.c_int
 # entry point -> argtypes (pointers and the stream as c_void_p, so ctypes
 # never truncates them to 32 bits); every entry point returns a cudaError_t
 _SIGNATURES = {
-    # x, y, vx, vy, ty, params, ox, oy, ovx, ovy, by, bx, cap, stream
-    "ps_bucket_step": [_P] * 10 + [_I] * 3 + [_P],
-    # x, y, ty, destid, by, bx, cap, bx_log2, by_log2, stream
-    "ps_bucket_dest": [_P] * 4 + [_I] * 5 + [_P],
-    # x, y, vx, vy, ty, destid, ox, oy, ovx, ovy, oty, n, stream
-    "ps_bucket_place": [_P] * 11 + [ctypes.c_long, _P],
+    # x, y, vx, vy, ty, params, ox, oy, ovx, ovy, n_grids, gy, gx, cap, ring, stream
+    "ps_bucket_step": [_P] * 10 + [_I] * 5 + [_P],
+    # x, y, ty, offsets, destid, n_grids, gy, gx, cap, bx_log2, by_log2, ring, stream
+    "ps_bucket_dest": [_P] * 5 + [_I] * 7 + [_P],
+    # x, y, vx, vy, ty, destid, ox, oy, ovx, ovy, oty, n_grids, n_src, n_out, stream
+    "ps_bucket_place": [_P] * 11 + [_I, ctypes.c_long, ctypes.c_long, _P],
     # x, y, vx, vy, ty, params, ox, oy, ovx, ovy, n, stream
     "ps_allpairs_step": [_P] * 10 + [_I, _P],
     # pairs per iteration of the all-pairs kernel's main loop

@@ -1,7 +1,20 @@
 // Destination slot of every source slot for the rebucket pass: the port of
 // particle_simulator_tpu/ops/bucket_pallas.py:_dest_kernel (reached through
-// move_dest_pallas). Plain version:
-// particle_simulator_tpu_torch/physics/bucket.py:move_dest_direct.
+// move_dest_pallas), and of its halo mode (_dest_kernel(halo=True), reached
+// through move_dest_pallas_halo). Plain versions:
+// particle_simulator_tpu_torch/physics/bucket.py:move_dest_direct and
+// move_dest_direct_halo.
+//
+// Halo mode (ring = 1): the input is a stack of shards, each padded with one
+// ring of its neighbours' buckets. Every slot, ring included, computes its
+// target from the global top bits minus its shard's (row, column) bucket
+// offsets; it is kept when it is live, targets an interior bucket, lies
+// within one bucket of it and ranks below CAP. Its id is numbered in the
+// shard's interior, (tgt_by*LX + tgt_bx)*CAP + rank. The ring's ids are what
+// the place pulls in from the neighbours (migration). The Pallas kernel
+// numbers its ids in the padded lane layout and computes the two y-halo
+// rows' ids outside the kernel on 3-row slices; here one thread per slot
+// covers the whole padded shard.
 //
 // What it computes: destid[p] = (tgt_by*BX + tgt_bx)*CAP + rank, or -1 when
 // p is dead, drifted more than one bucket from its target (the top bits of
@@ -25,21 +38,44 @@
 
 namespace {
 
+// One thread per slot of n_grids stacked (gy, gx, cap) grids (blockIdx.y =
+// the grid). HALO: each grid is a shard with a ring of one bucket around its
+// (gy - 2, gx - 2) interior, at the global (row, column) bucket offsets
+// `offsets` (int32, n_grids x 2). Otherwise the grid is the whole box: every
+// target lies inside it and the offsets are (0, 0). A template parameter, so
+// the single-device pass carries none of the halo mode's checks.
+template <bool HALO>
 __global__ void bucket_dest_kernel(
     const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
-    const int32_t* __restrict__ ty, int32_t* __restrict__ destid,
-    int by, int bx, int cap, int bx_log2, int by_log2) {
-  const long n_slots = (long)by * bx * cap;
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_slots) return;
-
-  const int slot = (int)(i % cap);
-  const int b = (int)(i / cap);
-  const int cbx = b % bx, cby = b / bx;
-  const int tbx = ps_bucket_of(x[i], bx_log2);
-  const int tby = ps_bucket_of(y[i], by_log2);
+    const int32_t* __restrict__ ty, const int32_t* __restrict__ offsets,
+    int32_t* __restrict__ destid, int gy, int gx, int cap,
+    int bx_log2, int by_log2) {
+  constexpr int ring = HALO ? 1 : 0;
+  // slot i of the stack and its grid's first slot
+  const int g = blockIdx.y;
+  long i, grid_base;
+  if (HALO) {
+    const int grid_slots = gy * gx * cap;
+    const int li = blockIdx.x * blockDim.x + threadIdx.x;
+    if (li >= grid_slots) return;
+    grid_base = (long)g * grid_slots;
+    i = grid_base + li;
+  } else {  // 64-bit indices: on one grid, 2% faster than the above on the H100
+    i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= (long)gy * gx * cap) return;
+    grid_base = 0;
+  }
+  const int ly = gy - 2 * ring, lx = gx - 2 * ring;
+  const int row_off = HALO ? offsets[2 * g] : 0;
+  const int col_off = HALO ? offsets[2 * g + 1] : 0;
+  const int slot = (int)((i - grid_base) % cap);
+  const int b = (int)((i - grid_base) / cap);
+  const int cbx = b % gx - ring, cby = b / gx - ring;  // interior coordinates
+  const int tbx = ps_bucket_of(x[i], bx_log2) - col_off;
+  const int tby = ps_bucket_of(y[i], by_log2) - row_off;
   const int dy = cby - tby, dx = cbx - tbx;
-  if (ty[i] < 0 || dy < -1 || dy > 1 || dx < -1 || dx > 1) {
+  if (ty[i] < 0 || (HALO && (tby < 0 || tby >= ly || tbx < 0 || tbx >= lx)) ||
+      dy < -1 || dy > 1 || dx < -1 || dx > 1) {
     destid[i] = -1;
     return;
   }
@@ -47,31 +83,42 @@ __global__ void bucket_dest_kernel(
 
   int rank = 0;
   for (int k = 0; k <= my_block && rank < cap; ++k) {
-    const int sby = tby + k / 3 - 1, sbx = tbx + k % 3 - 1;
-    if (sby < 0 || sby >= by || sbx < 0 || sbx >= bx) continue;
-    const long base = ((long)sby * bx + sbx) * cap;
+    // source bucket T + (dy, dx) in grid coordinates
+    const int sby = tby + ring + k / 3 - 1, sbx = tbx + ring + k % 3 - 1;
+    if (!HALO && (sby < 0 || sby >= gy || sbx < 0 || sbx >= gx)) continue;
+    const long base = grid_base + ((long)sby * gx + sbx) * cap;
     const int n = k < my_block ? cap : slot;  // own bucket: earlier slots only
     for (int s = 0; s < n; ++s) {
       const long j = base + s;
       // a live candidate of bucket T + (dy, dx) that targets T is pullable
-      if (__ldg(ty + j) >= 0 && ps_bucket_of(__ldg(x + j), bx_log2) == tbx &&
-          ps_bucket_of(__ldg(y + j), by_log2) == tby) {
+      if (__ldg(ty + j) >= 0 && ps_bucket_of(__ldg(x + j), bx_log2) - col_off == tbx &&
+          ps_bucket_of(__ldg(y + j), by_log2) - row_off == tby) {
         ++rank;
       }
     }
   }
-  destid[i] = rank < cap ? (tby * bx + tbx) * cap + rank : -1;
+  destid[i] = rank < cap ? (tby * lx + tbx) * cap + rank : -1;
 }
 
 }  // namespace
 
+// ring = 0: the single-device grid (offsets unused, may be null); ring = 1:
+// halo-padded shards with their global bucket offsets
 extern "C" int ps_bucket_dest(
-    const void* x, const void* y, const void* ty, void* destid,
-    int by, int bx, int cap, int bx_log2, int by_log2, void* stream) {
-  const long n = (long)by * bx * cap;
+    const void* x, const void* y, const void* ty, const void* offsets, void* destid,
+    int n_grids, int gy, int gx, int cap, int bx_log2, int by_log2, int ring,
+    void* stream) {
   const int threads = 256;
-  bucket_dest_kernel<<<ps_blocks(n, threads), threads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)x, (const uint32_t*)y, (const int32_t*)ty,
-      (int32_t*)destid, by, bx, cap, bx_log2, by_log2);
+  const dim3 blocks(ps_blocks((long)gy * gx * cap, threads), n_grids);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (ring) {
+    bucket_dest_kernel<true><<<blocks, threads, 0, s>>>(
+        (const uint32_t*)x, (const uint32_t*)y, (const int32_t*)ty,
+        (const int32_t*)offsets, (int32_t*)destid, gy, gx, cap, bx_log2, by_log2);
+  } else {
+    bucket_dest_kernel<false><<<blocks, threads, 0, s>>>(
+        (const uint32_t*)x, (const uint32_t*)y, (const int32_t*)ty,
+        (const int32_t*)offsets, (int32_t*)destid, gy, gx, cap, bx_log2, by_log2);
+  }
   return (int)cudaGetLastError();
 }

@@ -14,6 +14,16 @@ State lives as ``(BY, BX, CAP)`` tensors. These functions are what
 - ``bucket_step``         <-> ``ops/csrc/bucket_step.cu``
 - ``move_dest_direct``    <-> ``ops/csrc/bucket_dest.cu``
 - ``bucket_place``        <-> ``ops/csrc/bucket_place.cu``
+
+and their halo modes, which the sharded frame (``parallel/domain.py``) runs
+on a shard padded with one ring of its neighbours' buckets:
+
+- ``bucket_step_halo``      <-> ``bucket_step.cu`` with ``ring = 1``
+- ``move_dest_direct_halo`` <-> ``bucket_dest.cu`` with ``ring = 1``
+- ``bucket_place_halo``     <-> ``bucket_place.cu`` with an interior output
+
+The single-device functions are the halo ones on a tombstone ring. The halo
+functions take a stack of shards (leading axes) as well as one shard.
 """
 
 from __future__ import annotations
@@ -105,31 +115,49 @@ def state_to_grid(state: ParticleState, cfg: GridConfig) -> ParticleState:
 
 
 # ---------------------------------------------------------------------------
-# 3x3 neighbourhood
+# halo ring and 3x3 neighbourhood
 # ---------------------------------------------------------------------------
 
+TOMBSTONE = (0, 0, 0.0, 0.0, -1)  # x, y, vx, vy, ty of an empty slot
+
+
 def _pad_grid(a: torch.Tensor, fill) -> torch.Tensor:
-    """One halo ring of ``fill`` buckets around the (BY, BX, CAP) grid."""
-    by, bx, cap = a.shape
-    out = torch.full((by + 2, bx + 2, cap), fill, dtype=a.dtype, device=a.device)
-    out[1:-1, 1:-1] = a
+    """One ring of ``fill`` buckets around a (..., BY, BX, CAP) grid."""
+    *lead, by, bx, cap = a.shape
+    out = torch.full((*lead, by + 2, bx + 2, cap), fill, dtype=a.dtype, device=a.device)
+    out[..., 1:-1, 1:-1, :] = a
     return out
+
+
+def pad_tombstone_halo(state: ParticleState) -> ParticleState:
+    """Single-device halo: (..., BY, BX, CAP) -> (..., BY+2, BX+2, CAP) with
+    one ring of tombstone buckets. The sharded path fills the ring from the
+    neighbour shards instead (``parallel/domain.py``); everything downstream
+    is shared between the two."""
+    return ParticleState(*(_pad_grid(a, fill) for a, fill in zip(state, TOMBSTONE)))
+
+
+def interior(padded: ParticleState) -> ParticleState:
+    """The (..., BY, BX, CAP) interior of a halo-padded grid (views)."""
+    return ParticleState(*(a[..., 1:-1, 1:-1, :] for a in padded))
+
+
+def stack9(padded: ParticleState) -> ParticleState:
+    """(..., BY+2, BX+2, CAP) -> (..., BY, BX, 9*CAP): the 3x3 neighbour
+    buckets of every interior bucket of a halo-padded grid, blocks in
+    (dy, dx) order with slots ascending (the reference's scan order)."""
+    by, bx = padded.x.shape[-3] - 2, padded.x.shape[-2] - 2
+    return ParticleState(*(
+        torch.cat([a[..., dy:dy + by, dx:dx + bx, :] for dy in (0, 1, 2) for dx in (0, 1, 2)],
+                  dim=-1)
+        for a in padded
+    ))
 
 
 def gather_neighborhood(state: ParticleState) -> ParticleState:
     """(BY, BX, CAP) -> (BY, BX, 9*CAP): the 3x3 neighbour buckets of every
-    bucket, blocks in (dy, dx) order with slots ascending; neighbours outside
-    the grid are tombstones (no periodic wrap)."""
-    by, bx, _ = state.x.shape
-    fills = (0, 0, 0.0, 0.0, -1)
-    out = []
-    for a, fill in zip(state, fills):
-        p = _pad_grid(a, fill)
-        out.append(torch.cat(
-            [p[dy:dy + by, dx:dx + bx] for dy in (0, 1, 2) for dx in (0, 1, 2)],
-            dim=-1,
-        ))
-    return ParticleState(*out)
+    bucket; neighbours outside the grid are tombstones (no periodic wrap)."""
+    return stack9(pad_tombstone_halo(state))
 
 
 def _self_pair_mask(cap: int, device) -> torch.Tensor:
@@ -144,54 +172,81 @@ def _self_pair_mask(cap: int, device) -> torch.Tensor:
 # step, dest, place
 # ---------------------------------------------------------------------------
 
-def bucket_step(state: ParticleState, params: torch.Tensor) -> ParticleState:
-    """One physics step over the (BY, BX, CAP) grid: cursor + wall + 3x3
-    neighbourhood Mie forces, then leapfrog. ``ty`` passes through."""
-    nbr = gather_neighborhood(state)
-    fx, fy = external_forces(state, params)
-    # pair forces add onto the external ones, candidates in the stack's
-    # order: the kernel's per-thread summation order
+def bucket_step_halo(padded: ParticleState, params: torch.Tensor) -> ParticleState:
+    """One physics step of a halo-padded (..., BY+2, BX+2, CAP) grid: every
+    live interior slot feels the cursor, the walls and the Mie pairs of its
+    3x3 neighbourhood (ring included), then leapfrogs. Every other slot (the
+    ring, tombstones) passes through, and ``ty`` is the input's tensor.
+    Candidates are added one at a time in the stack's order, the kernel's
+    per-thread order. The counterpart of the JAX ``bucket_step_nbr``."""
+    # contiguous receivers: the same element layout as an unpadded grid
+    inner = ParticleState(*(a.contiguous() for a in interior(padded)))
+    nbr = stack9(padded)
+    fx, fy = external_forces(inner, params)
     fx, fy = pair_force_accum(
-        state.x, state.y, nbr.x, nbr.y, nbr.ty, params,
-        exclude=_self_pair_mask(state.x.shape[-1], state.x.device), fx=fx, fy=fy,
+        inner.x, inner.y, nbr.x, nbr.y, nbr.ty, params,
+        exclude=_self_pair_mask(inner.x.shape[-1], inner.x.device), fx=fx, fy=fy,
     )
-    nx, ny, nvx, nvy = leapfrog_apply(
-        state.x, state.y, state.vx, state.vy, state.ty, fx, fy, params
-    )
-    return ParticleState(nx, ny, nvx, nvy, state.ty)
+    stepped = leapfrog_apply(*inner, fx, fy, params)
+    out = []
+    for a, s in zip(padded[:4], stepped):
+        a = a.clone()
+        a[..., 1:-1, 1:-1, :] = s
+        out.append(a)
+    return ParticleState(*out, padded.ty)
+
+
+def bucket_step(state: ParticleState, params: torch.Tensor) -> ParticleState:
+    """One physics step over the (BY, BX, CAP) grid: the halo step on a
+    tombstone ring. ``ty`` passes through."""
+    out = interior(bucket_step_halo(pad_tombstone_halo(state), params))
+    return ParticleState(*(a.contiguous() for a in out[:4]), state.ty)
 
 
 def _shift_pad(a: torch.Tensor, sy: int, sx: int) -> torch.Tensor:
-    """``a`` shifted by (+sy, +sx) with zero fill: out[y, x] = a[y-sy, x-sx]."""
-    by, bx = a.shape
+    """``a`` (..., BY, BX) shifted by (+sy, +sx) with zero fill:
+    out[..., y, x] = a[..., y-sy, x-sx]."""
+    by, bx = a.shape[-2:]
     out = torch.zeros_like(a)
-    out[max(sy, 0):by + min(sy, 0), max(sx, 0):bx + min(sx, 0)] = (
-        a[max(-sy, 0):by + min(-sy, 0), max(-sx, 0):bx + min(-sx, 0)]
+    out[..., max(sy, 0):by + min(sy, 0), max(sx, 0):bx + min(sx, 0)] = (
+        a[..., max(-sy, 0):by + min(-sy, 0), max(-sx, 0):bx + min(-sx, 0)]
     )
     return out
 
 
-def move_dest_direct(state: ParticleState) -> torch.Tensor:
-    """Destination slot of every source slot under the pull order, as a
-    (BY, BX, CAP) int32 tensor: ``(tgt_by*BX + tgt_bx)*CAP + rank``, or -1
-    for a dead particle, a drift of more than one bucket, or overflow
-    (rank >= CAP).
+def move_dest_direct_halo(padded: ParticleState, bx_log2: int, by_log2: int,
+                          offsets: torch.Tensor) -> torch.Tensor:
+    """Destination slot of every slot of a halo-padded (..., LY+2, LX+2, CAP)
+    shard under the pull order, as an int32 tensor of the same shape:
+    ``(tgt_by*LX + tgt_bx)*CAP + rank`` in the shard's interior numbering,
+    or -1. The counterpart of the JAX ``move_ranks_direct_halo`` composed
+    as in ``bucket_move_direct_halo``.
+
+    A slot's target is the top ``by_log2``/``bx_log2`` bits of its
+    coordinates (the global grid's) minus the shard's global bucket
+    offsets, ``offsets`` = int32 (..., 2) of (row, column). The slot is kept
+    when it is live, targets an interior bucket, lies within one bucket of
+    it, and ranks below CAP. Ring slots get ids too: the place pulls the
+    neighbours' particles that migrate in.
 
     The rank of p in its target bucket T follows T's scan: source buckets
     T + (dy, dx) with dy outer and dx inner, from -1 to 1, slots ascending.
     So rank(p) = the particles of earlier scan blocks that target T plus the
     earlier slots of p's own source bucket that target T."""
-    by, bx, cap = state.x.shape
-    bx_log2, by_log2 = grid_log2(state)
-    dev = state.x.device
-    tgt_bx = bucket_of(state.x, bx_log2)
-    tgt_by = bucket_of(state.y, by_log2)
-    dy = torch.arange(by, dtype=torch.int32, device=dev)[:, None, None] - tgt_by
-    dx = torch.arange(bx, dtype=torch.int32, device=dev)[None, :, None] - tgt_bx
-    pullable = (state.ty >= 0) & (dy.abs() <= 1) & (dx.abs() <= 1)
+    *_, py, px, cap = padded.x.shape
+    ly, lx = py - 2, px - 2
+    dev = padded.x.device
+    offsets = offsets.to(torch.int32)
+    tgt_by = bucket_of(padded.y, by_log2) - offsets[..., 0, None, None, None]
+    tgt_bx = bucket_of(padded.x, bx_log2) - offsets[..., 1, None, None, None]
+    dy = torch.arange(-1, py - 1, dtype=torch.int32, device=dev)[:, None, None] - tgt_by
+    dx = torch.arange(-1, px - 1, dtype=torch.int32, device=dev)[None, :, None] - tgt_bx
+    pullable = ((padded.ty >= 0) & (tgt_by >= 0) & (tgt_by < ly) & (tgt_bx >= 0)
+                & (tgt_bx < lx) & (dy.abs() <= 1) & (dx.abs() <= 1))
 
-    rank = torch.zeros((by, bx, cap), dtype=torch.int32, device=dev)
-    block_prefix = torch.zeros((by, bx), dtype=torch.int32, device=dev)  # per target
+    rank = torch.zeros(padded.x.shape, dtype=torch.int32, device=dev)
+    # per target cell, in padded coordinates
+    block_prefix = torch.zeros(padded.x.shape[:-1], dtype=torch.int32, device=dev)
     for k in range(9):
         dyk, dxk = k // 3 - 1, k % 3 - 1
         mk = (pullable & (dy == dyk) & (dx == dxk)).to(torch.int32)
@@ -202,26 +257,66 @@ def move_dest_direct(state: ParticleState) -> torch.Tensor:
         block_prefix = block_prefix + _shift_pad(inc[..., -1], -dyk, -dxk)
 
     keep = pullable & (rank < cap)
-    dest = (tgt_by * bx + tgt_bx) * cap + rank
+    dest = (tgt_by * lx + tgt_bx) * cap + rank
     return torch.where(keep, dest, -1).to(torch.int32)
 
 
-def bucket_place(state: ParticleState, destid: torch.Tensor) -> ParticleState:
-    """Move each kept particle's five fields to its ``destid`` slot; every
-    other slot becomes a tombstone (x = y = 0, v = 0, ty = -1). Destination
-    ids are unique, so the result does not depend on write order."""
-    shape = state.x.shape
-    out = empty_state((state.capacity,), state.x.device)
-    src = destid.reshape(-1) >= 0
-    dst = destid.reshape(-1)[src].long()
+def move_dest_direct(state: ParticleState) -> torch.Tensor:
+    """Destination slot of every source slot of the (BY, BX, CAP) grid, as
+    an int32 tensor of its shape: ``(tgt_by*BX + tgt_bx)*CAP + rank``, or -1
+    for a dead particle, a drift of more than one bucket, or overflow
+    (rank >= CAP). The halo dest on a tombstone ring at offset (0, 0)."""
+    bx_log2, by_log2 = grid_log2(state)
+    zero = torch.zeros(2, dtype=torch.int32, device=state.x.device)
+    dest = move_dest_direct_halo(pad_tombstone_halo(state), bx_log2, by_log2, zero)
+    return dest[1:-1, 1:-1].contiguous()
+
+
+def _place(state: ParticleState, destid: torch.Tensor, out_grid) -> ParticleState:
+    """Move each kept slot's five fields of every (..., PY, PX, CAP) grid of
+    ``state`` to slot ``destid`` of that grid's ``out_grid``-shaped output;
+    every other output slot becomes a tombstone (x = y = 0, v = 0,
+    ty = -1). Destination ids are unique within a grid, so the result does
+    not depend on write order."""
+    lead = tuple(state.x.shape[:-3])
+    n_src = int(np.prod(state.x.shape[-3:]))
+    n_out = int(np.prod(out_grid))
+    n_grids = int(np.prod(lead))
+    dev = state.x.device
+    out = empty_state((n_grids * n_out,), dev)
+    d = destid.reshape(n_grids, n_src)
+    src = d >= 0
+    grid_base = torch.arange(n_grids, dtype=torch.int64, device=dev)[:, None] * n_out
+    dst = (d.long() + grid_base)[src]
     for o, a in zip(out, state):
-        o[dst] = a.reshape(-1)[src]
-    return out.reshape(shape)
+        o[dst] = a.reshape(n_grids, n_src)[src]
+    return out.reshape((*lead, *out_grid))
+
+
+def bucket_place(state: ParticleState, destid: torch.Tensor) -> ParticleState:
+    """Move each kept particle's five fields to its ``destid`` slot of the
+    (BY, BX, CAP) grid; every other slot becomes a tombstone."""
+    return _place(state, destid, state.x.shape)
+
+
+def bucket_place_halo(padded: ParticleState, destid: torch.Tensor) -> ParticleState:
+    """The halo place: every kept slot of a (..., LY+2, LX+2, CAP) shard,
+    ring included, moves to its interior-numbered ``destid`` slot of a
+    (..., LY, LX, CAP) output; every other output slot is a tombstone."""
+    *_, py, px, cap = padded.x.shape
+    return _place(padded, destid, (py - 2, px - 2, cap))
 
 
 def bucket_move_direct(state: ParticleState) -> ParticleState:
     """The rebucket pass: ``move_dest_direct`` then ``bucket_place``."""
     return bucket_place(state, move_dest_direct(state))
+
+
+def bucket_move_direct_halo(padded: ParticleState, bx_log2: int, by_log2: int,
+                            offsets: torch.Tensor) -> ParticleState:
+    """The shard-local rebucket and migration pass: ``move_dest_direct_halo``
+    then ``bucket_place_halo``, (..., LY+2, LX+2, CAP) -> (..., LY, LX, CAP)."""
+    return bucket_place_halo(padded, move_dest_direct_halo(padded, bx_log2, by_log2, offsets))
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """The CPU-side helpers of ``chip_smoke.py``: the SASS loop count that sets
-the arithmetic bounds, the bound arithmetic, the bucket-step pair count and
-the place library call. The card's own phases run only on the card."""
+the arithmetic bounds, the bound arithmetic, the bucket-step pair counts,
+the place library calls and the device busy-share arithmetic. The card's own
+phases run only on the card."""
 
 import numpy as np
 import torch
@@ -65,3 +66,34 @@ def test_bucket_pairs_and_place_library_call():
     placed = bucket.bucket_place(state, destid)
     assert torch.equal(table, torch.stack([a.reshape(-1).view(torch.int32) for a in placed], 1))
     assert live == int((state.ty >= 0).sum())
+
+
+def test_halo_pairs_and_halo_place_library_call():
+    """On a stack of tombstone-padded grids the halo pair count is the
+    single-device count summed, and the halo place's library call is the
+    halo place."""
+    cfg = bucket.GridConfig(3, 3, 8)
+    parts, _, _ = chip_smoke.dense_grid_scene(cfg)
+    state = state_from_numpy(parts, cfg.capacity).reshape(cfg.grid_shape)
+    stack = bucket.ParticleState(*(torch.stack([a, a]) for a in state))
+    padded = bucket.pad_tombstone_halo(stack)
+    assert chip_smoke.halo_pairs(padded) == 2 * chip_smoke.bucket_pairs(state)
+    offsets = torch.zeros(2, 2, dtype=torch.int32)
+    destid = bucket.move_dest_direct_halo(padded, cfg.bx_log2, cfg.by_log2, offsets)
+    table, _ = chip_smoke.place_library_call(padded, destid, 1, timer=lambda fn, reps: 0.0,
+                                             out_grid=cfg.grid_shape)
+    placed = bucket.bucket_place_halo(padded, destid)
+    assert torch.equal(table, torch.stack([a.reshape(-1).view(torch.int32) for a in placed], 1))
+
+
+def test_busy_summary_merges_overlaps_and_windows():
+    ops = [(0, 10, "upload"), (20, 30, "step_kernel"), (25, 35, "copy"),
+           (40, 50, "step_kernel"), (60, 70, "step_kernel"), (70, 80, "fill")]
+    whole = chip_smoke.busy_summary(ops)
+    assert np.isclose(whole["busy_share"], 55 / 80)  # 10 + 15 + 10 + 20 of 80 us
+    # gaps: 10 us after the upload, 5 after the copy, 10 after the second step
+    assert whole["idle_ms_after"] == {"upload": 0.01, "step_kernel": 0.01, "copy": 0.005}
+    steady = chip_smoke.busy_summary(ops, window_kernel="step_kernel", skip=1)
+    assert np.isclose(steady["busy_share"], 20 / 30)  # from 40 to 70 us
+    assert steady["busy_ms_by_op"] == {"step_kernel": 0.02}
+    assert chip_smoke.busy_summary([]) is None
