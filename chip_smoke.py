@@ -9,7 +9,7 @@ Phases (each prints one result line; any failure raises and the script
 exits non-zero without printing a result):
 
 1. card: the device name and ``nvidia-smi`` name/power limit;
-2. build: the four CUDA kernels compiled from ``ops/csrc`` with nvcc, one
+2. build: the CUDA kernels compiled from ``ops/csrc`` with nvcc, one
    process per source; the all-pairs kernel's main loop counted in its SASS
    (``cuobjdump -sass``), which sets the arithmetic bounds;
 3. kernels: each bucket kernel against its plain PyTorch version on the
@@ -53,7 +53,27 @@ exits non-zero without printing a result):
     writes, every halo kernel launched and no single-device bucket kernel;
     the same serve on one device for comparison; then the device's busy
     share over a steady window (from the third frame on) of a profiled
-    serve of each.
+    serve of each;
+12. ext kernels: the tile-scheduled step (``bucket_step_ext_cuda``, every
+    tile and live tiles only) against its plain versions and the classic
+    CUDA step, bit for bit on every field over two steps on one buffer
+    pair, on the 1M user scene of ``bench.py --user-scene`` (1024x1024x16,
+    8 lane chunks, 8-row tiles) and the stress scene (2 chunks); on the
+    user scene the classic, every-tile and live-tiles step times, the plain
+    versions', the per-chunk aux and buffer-pair times, the rebucket's
+    time, the bound and the live-tile share;
+13. ext frame: three 100-step frames of the user scene through
+    ``run_frame_bucket_cuda(ext_io=True)`` in both modes, bit-identical to
+    the classic frame on every slot; the frame time of each runner (5 in
+    turns, with omax and the live-tile share after each compact one), the
+    host's time to enqueue one frame of each and the device's busy share
+    over two frames of each; the readback check: a ticket started on frame k of a
+    Simulator serving with PS_EXT_IO=compact reads the bytes of a copy
+    taken before frame k+1, whose run left the held state unchanged;
+14. ext slice: the 1024x1024 editor lattice served as in phase 4 with
+    PS_EXT_IO=compact, nocompact and off: frames finite, the runner and
+    its kernels launched, the frame period; then a profiled serve of each
+    for the busy share.
 
 On a machine with more than one card, phases 10 and 11 run once more on a
 mesh of every card, one shard a card.
@@ -88,6 +108,10 @@ STEP_HALO_KERNEL = "particle_simulator_tpu/ops/bucket_pallas.py:750"  # edge_row
 DEST_HALO_KERNEL = "particle_simulator_tpu/ops/bucket_pallas.py:1536"  # _dest_kernel(halo=True)
 PLACE_HALO_KERNEL = "particle_simulator_tpu/ops/bucket_pallas.py:2143"  # _place_edge_kernel
 HALO_KERNELS = ("step_halo", "dest_halo", "place_halo")
+# the ext-layout step: _step_kernel with out_off=0 at its pallas_call (compact=False),
+# and _step_kernel_compact (compact=True, its pallas_call at :1079)
+EXT_KERNEL = "particle_simulator_tpu/ops/bucket_pallas.py:1103"
+COMPACT_KERNEL = "particle_simulator_tpu/ops/bucket_pallas.py:936"
 CSRC = "particle_simulator_tpu_torch/ops/csrc"
 
 # The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): 3.35 TB/s
@@ -333,15 +357,32 @@ def bound(nbytes: int, ops_ms: float = 0.0) -> dict:
 
 def bucket_pairs(state) -> int:
     """Pair evaluations of one bucket step on this state: live receivers
-    times their live 3x3-neighbourhood candidates, self excluded."""
+    times their live 3x3-neighbourhood candidates, self excluded, from the
+    per-bucket live counts."""
     import torch
 
-    from particle_simulator_tpu_torch.physics import bucket
+    live = (state.ty >= 0).sum(-1, dtype=torch.int64)  # (BY, BX)
+    by, bx = live.shape
+    padded = torch.zeros((by + 2, bx + 2), dtype=torch.int64, device=live.device)
+    padded[1:-1, 1:-1] = live
+    nbr = sum(padded[dy:dy + by, dx:dx + bx] for dy in range(3) for dx in range(3))
+    return int((live * (nbr - 1)).sum())
 
-    nbr = bucket.gather_neighborhood(state)
-    live_j = (nbr.ty >= 0).sum(-1, dtype=torch.int64)  # (BY, BX): the same for a bucket's slots
-    live_i = (state.ty >= 0).to(torch.int64)
-    return int((live_i * (live_j[..., None] - 1)).sum())
+
+def live_tile_share(aux) -> float:
+    """The share of an ``ExtStepAux``'s tiles that hold a live slot."""
+    return float(aux.flags.float().mean())
+
+
+def ext_bound(state, sass: dict) -> dict:
+    """The bound of one step of a sparse grid, the same for the classic and
+    the tile-scheduled step: the live slots' 20 bytes read and 16 written,
+    and the live pairs' operations. Dead slots are work the data does not
+    need."""
+    import torch
+
+    live = int((state.ty >= 0).sum(dtype=torch.int64))
+    return bound(36 * live, ops_bound_ms(bucket_pairs(state), sass))
 
 
 def halo_pairs(padded) -> int:
@@ -478,6 +519,20 @@ def ship_times():
         daemon.Frontend.connect_tcp = original
 
 
+def enqueue_ms(runner) -> float:
+    """Host time to enqueue one frame on an idle card (least of 3)."""
+    import torch
+
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return best
+
+
 def device_busy(fn, window_kernel: str | None = None, skip: int = 0):
     """Run ``fn`` under ``torch.profiler`` (CUDA activity only); return (its
     result, ``busy_summary`` of the device operations it recorded)."""
@@ -533,11 +588,18 @@ def busy_summary(ops, window_kernel: str | None = None, skip: int = 0):
             "busy_ms_by_op": {k[:60]: round(v, 4) for k, v in names}}
 
 
+# PS_EXT_IO -> the one-device slice's runner and the kernels of its path
+SLICE_PATHS = {"off": ("bucket", ("step", "dest", "place")),
+               "nocompact": ("bucket-ext", ("step_ext", "dest", "place")),
+               "compact": ("bucket-compact", ("step_compact", "dest", "place"))}
+
+
 def phase_slice(device, lattice: str, frames: int, workdir: str, mesh=None,
-                profile: bool = False):
-    """Phases 4 and 11: the unchanged headless editor against the port's
-    daemon, on one device or sharded over ``mesh``; with ``profile``, the
-    device's busy share over the serve."""
+                profile: bool = False, ext_io: str = "off"):
+    """Phases 4, 11 and 14: the unchanged headless editor against the port's
+    daemon, on one device or sharded over ``mesh``, with ``PS_EXT_IO`` set
+    to ``ext_io``; with ``profile``, the device's busy share over the
+    serve."""
     from particle_simulator_tpu_torch.io.transport import Disconnected, Reader
     from particle_simulator_tpu_torch.engine import daemon
     from particle_simulator_tpu_torch.engine.simulator import Simulator
@@ -562,10 +624,10 @@ def phase_slice(device, lattice: str, frames: int, workdir: str, mesh=None,
         try:
             for k in bc.LAUNCHES:
                 bc.LAUNCHES[k] = 0
-            with ship_times() as times:
+            with ship_times() as times, ext_io_env(ext_io):
                 t0 = time.perf_counter()
                 # the steady window starts with the third frame's first step
-                steady = dict(window_kernel="bucket_step_kernel", skip=200)
+                steady = dict(window_kernel="bucket_step", skip=200)
                 shipped, busy = device_busy(serve, **steady) if profile else (serve(), None)
                 serve_s = time.perf_counter() - t0
             launches = dict(bc.LAUNCHES)
@@ -579,7 +641,7 @@ def phase_slice(device, lattice: str, frames: int, workdir: str, mesh=None,
             raise AssertionError(f"editor exited {rc}:\n{f.read()[-4000:]}")
     if shipped != frames:
         raise AssertionError(f"daemon shipped {shipped} of {frames} frames")
-    runner = "sharded" if mesh is not None else "bucket"
+    runner, path = ("sharded", HALO_KERNELS) if mesh is not None else SLICE_PATHS[ext_io]
     if sim.active_kernel != f"{runner}-{'cuda' if device.startswith('cuda') else 'torch-cpu'}":
         raise AssertionError(f"frames ran through {sim.active_kernel}")
     counts = []
@@ -601,20 +663,20 @@ def phase_slice(device, lattice: str, frames: int, workdir: str, mesh=None,
     nx, ny = (int(v) for v in lattice.split("x"))
     if counts[0] != nx * ny:  # the echo of the scene the editor sent
         raise AssertionError(f"echoed {counts[0]} particles of {nx * ny}")
-    path = HALO_KERNELS if mesh is not None else ("step", "dest", "place")
     if any(launches[k] == 0 for k in path):
         raise AssertionError(f"a kernel never launched on the main path: {launches}")
     if any(launches[k] for k in bc.LAUNCHES if k not in path):
         raise AssertionError(f"a kernel of another path launched: {launches}")
     periods = np.diff(times[2:]) * 1e3  # after the echo and the first frame
     line = {"frames": frames, "particles": counts, "grid": list(sim.grid.grid_shape),
-            "mesh": None if mesh is None else list(mesh.shape),
-            "active_kernel": sim.active_kernel, "launches": launches, "serve_s": serve_s,
+            "mesh": None if mesh is None else list(mesh.shape), "ext_io": ext_io,
+            "lane_chunks": sim._lane_chunks, "active_kernel": sim.active_kernel, "launches": launches, "serve_s": serve_s,
             "frame_period_ms": {"median": float(np.median(periods)),
                                 "p90": float(np.percentile(periods, 90)),
                                 "all": [round(float(v), 3) for v in periods]},
             "profiled": profile, "device": busy}
-    print(("mesh slice: " if mesh is not None else "slice: ") + json.dumps(line), flush=True)
+    label = "mesh slice" if mesh is not None else "slice" if ext_io == "off" else "ext slice"
+    print(f"{label}: " + json.dumps(line), flush=True)
     return line
 
 
@@ -972,17 +1034,6 @@ def phase_sharded_frame(device, cfg, frames: int, steps: int, timed: int, mesh=N
         nonlocal blocks
         blocks = fn(blocks, pvs, steps)
 
-    def enqueue_ms(runner):
-        """Host time to enqueue one frame on an idle card (least of 3)."""
-        best = float("inf")
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            runner()
-            best = min(best, (time.perf_counter() - t0) * 1e3)
-        torch.cuda.synchronize()
-        return best
-
     # in turns: one device, mesh, mesh, one device
     ms = [run(one, timed), run(sharded, timed), run(sharded, timed), run(one, timed)]
     host = {"single_device": enqueue_ms(one), "sharded": enqueue_ms(sharded)}
@@ -998,6 +1049,195 @@ def phase_sharded_frame(device, cfg, frames: int, steps: int, timed: int, mesh=N
             "sharded_over_single": (ms[1] + ms[2]) / (ms[0] + ms[3]),
             "host_enqueue_ms_per_frame": host, "device": busy}
     print("sharded frame: " + json.dumps(line), flush=True)
+    return line
+
+
+def user_scene():
+    """``bench.py --user-scene`` at 1M: a 1000 x 1000 hex lattice at 1.1 r0
+    filling half of its box's side, 100 steps a frame; ``_grid_for`` puts it
+    on a 1024 x 1024 x 16 grid, 27% of whose 8-row tiles are live at 8 lane
+    chunks."""
+    from particle_simulator_tpu_torch.scenes.library import _scene
+
+    return _scene(1000, 1000, distance_factor=1.1, speed=1.0, box_fill=0.5)
+
+
+def same_state(got, ref, label: str) -> float:
+    """Raise unless every field is equal; return the largest live-velocity
+    difference (0.0)."""
+    import torch
+
+    for name, a, b in zip(got._fields, got, ref):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: field {name} differs at "
+                                 f"{int((a != b).sum())} slots")
+    live = ref.ty >= 0
+    diffs = [(got[i][live] - ref[i][live]).abs() for i in (2, 3)]
+    return max((float(d.max()) for d in diffs if d.numel()), default=0.0)
+
+
+def phase_ext_kernels(device, scene, stress_cfg, reps: int, sass: dict):
+    """Phase 12: the tile-scheduled step (both modes) against its plain
+    versions and the classic CUDA step, two steps on one buffer pair, on the
+    1M user scene and the stress scene; times and bound on the user scene."""
+    from particle_simulator_tpu_torch.engine.simulator import Simulator
+    from particle_simulator_tpu_torch.engine.state import SimParams, state_from_numpy
+    from particle_simulator_tpu_torch.ops import bucket_cuda as bc
+    from particle_simulator_tpu_torch.physics import bucket
+
+    sim = Simulator(device=device)
+    sim.load_frame(scene)
+    parts, meta = stress_scene(stress_cfg)
+    stress = state_from_numpy(parts, stress_cfg.capacity, device).reshape(stress_cfg.grid_shape)
+    cases = {"user": (sim.state, sim._pvec, sim._lane_chunks),
+             "stress": (stress, SimParams.from_record(meta).vector(device), 2)}
+    results = {}
+    for label, (state, pv, chunks) in cases.items():
+        aux = bucket.ext_step_aux(state, pv, chunks, 8)
+        classic = [bc.bucket_step_cuda(state, pv)]
+        classic.append(bc.bucket_step_cuda(classic[0], pv))
+        err = 0.0
+        for compact in (False, True):
+            name = "compact" if compact else "ext"
+            first = bc.bucket_step_ext_cuda(bc.ext_pair(state), aux, compact)
+            second = bc.bucket_step_ext_cuda(first, aux, compact)  # writes first's spare
+            plain = bucket.bucket_step_ext(state, aux, compact)
+            for k, (got, ref) in enumerate(((first.cur, plain),
+                                            (second.cur, bucket.bucket_step_ext(plain, aux, compact)))):
+                err = max(err, same_state(got, ref, f"{label} {name} step {k} vs plain"))
+                same_state(got, classic[k], f"{label} {name} step {k} vs the classic step")
+        line = {"scene": label, "grid": list(state.x.shape), "lane_chunks": chunks,
+                "ty_rows": aux.ty_rows, "live": int((state.ty >= 0).sum()),
+                "omax": int(aux.params[-1]), "live_tile_share": live_tile_share(aux),
+                "max_abs_err_v": err}
+        if label == "user":
+            pair = bc.ext_pair(state)
+            line["pairs_per_step"] = bucket_pairs(state)
+            line["ms"] = {
+                "classic": cuda_ms(lambda: bc.bucket_step_cuda(state, pv), reps),
+                "ext": cuda_ms(lambda: bc.bucket_step_ext_cuda(pair, aux, False), reps),
+                "compact": cuda_ms(lambda: bc.bucket_step_ext_cuda(pair, aux, True), reps),
+                "ext_plain": cuda_ms(lambda: bucket.bucket_step_ext(state, aux, False), 1),
+                "compact_plain": cuda_ms(lambda: bucket.bucket_step_ext(state, aux, True), 1),
+                # the once-a-chunk prologue of the ext frame, and the rebucket
+                "aux": cuda_ms(lambda: bucket.ext_step_aux(state, pv, chunks, 8), reps),
+                "pair": cuda_ms(lambda: bc.ext_pair(state), reps),
+                "move": cuda_ms(lambda: bc.bucket_move_cuda(state), reps),
+            }
+            line["bound"] = ext_bound(state, sass)
+        results[label] = line
+        print("ext kernels: " + json.dumps(line), flush=True)
+    return results
+
+
+def compare_readback(got_bytes: bytes, want_bytes: bytes, held, copy) -> None:
+    """The readback check: a ticket's frame must be the frame of a copy
+    taken before the next frame ran, and the state the ticket holds must
+    still hold the copy's bytes."""
+    import torch
+
+    if got_bytes != want_bytes:
+        raise AssertionError("the ReadbackTicket read other bytes than its frame's copy")
+    for name, a, b in zip(held._fields, held, copy):
+        if not torch.equal(a.cpu(), b.cpu()):
+            raise AssertionError(f"the next frame wrote the held state's {name}")
+
+
+def readback_check(sim) -> dict:
+    """Frame k on a loaded Simulator, a synchronous host copy of its state,
+    a ReadbackTicket started on it, frame k+1; then ``compare_readback``."""
+    import torch
+
+    from particle_simulator_tpu_torch.engine.state import ParticleState
+
+    sim.frame_async()
+    copy = ParticleState(*(a.to("cpu", copy=True) for a in sim.state))
+    ticket = sim.start_readback()
+    kernel = sim.active_kernel
+    sim.frame_async()
+    got = sim.read_frame(ticket)
+    if sim.state.x.is_cuda:
+        torch.cuda.synchronize()
+    want = sim.read_frame(copy.to(sim.state.x.device))
+    compare_readback(got.bytes, want.bytes, ticket.state, copy)
+    return {"active_kernel": kernel, "particles": got.particle_count}
+
+
+@contextlib.contextmanager
+def ext_io_env(mode: str):
+    """``PS_EXT_IO`` set to ``mode`` while the context is open."""
+    old = os.environ.get("PS_EXT_IO")
+    os.environ["PS_EXT_IO"] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["PS_EXT_IO"]
+        else:
+            os.environ["PS_EXT_IO"] = old
+
+
+def phase_ext_frame(device, scene, frames: int, timed: int):
+    """Phase 13: the ext frame in both modes against the classic frame on
+    the 1M user scene, bit for bit on every slot; frame times; then the
+    readback check through a Simulator serving the scene with
+    PS_EXT_IO=compact."""
+    import torch
+
+    from particle_simulator_tpu_torch.engine.simulator import Simulator
+    from particle_simulator_tpu_torch.ops.bucket_cuda import run_frame_bucket_cuda
+    from particle_simulator_tpu_torch.physics import bucket
+
+    sim = Simulator(device=device)
+    sim.load_frame(scene)
+    pv, steps, every = sim._pvec, sim.params.steps_per_frame, sim.grid.move_every
+    chunks, particles = sim._lane_chunks, sim.live_count
+
+    def runner(**ext):
+        return lambda s: run_frame_bucket_cuda(s, pv, steps, every, **ext)
+
+    runners = {"classic": runner(),
+               "ext": runner(lane_chunks=chunks, ext_io=True, compact_tiles=False, block_rows=8),
+               "compact": runner(lane_chunks=chunks, ext_io=True, compact_tiles=True, block_rows=8)}
+    states = dict.fromkeys(runners, sim.state)
+    for i in range(frames):
+        for name, run in runners.items():
+            states[name] = run(states[name])
+        for name in ("ext", "compact"):
+            same_state(states[name], states["classic"], f"{name} frame {i}")
+    alive = states["classic"].ty >= 0
+    if not bool(torch.isfinite(states["classic"].vx[alive]).all()):
+        raise AssertionError("ext frame: non-finite velocities")
+    def advance(name, frames=1):
+        for _ in range(frames):
+            states[name] = runners[name](states[name])
+
+    ms = {name: [] for name in runners}
+    tiles = []  # (omax, live-tile share) after each timed compact frame
+    for _ in range(timed):  # in turns
+        for name in runners:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            advance(name)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+        aux = bucket.ext_step_aux(states["compact"], pv, chunks, 8)
+        tiles.append((int(aux.params[-1]), live_tile_share(aux)))
+    host = {name: enqueue_ms(lambda name=name: advance(name)) for name in runners}
+    busy = {name: device_busy(lambda name=name: advance(name, 2))[1] for name in runners}
+    with ext_io_env("compact"):
+        readback = readback_check(sim)
+    if readback["active_kernel"] != "bucket-compact-cuda":
+        raise AssertionError(f"the readback check ran through {readback['active_kernel']}")
+    line = {"scene": "user", "grid": list(sim.grid.grid_shape), "lane_chunks": chunks,
+            "particles": particles,
+            "survivors": int(alive.sum()), "frames_compared": frames,
+            "steps_per_frame": steps, "bit_identical_all_slots": True,
+            "frame_ms_median": {k: float(np.median(v)) for k, v in ms.items()},
+            "frame_ms": {k: [round(t, 3) for t in v] for k, v in ms.items()},
+            "omax_and_live_tiles_after_compact_frames": tiles,
+            "host_enqueue_ms_per_frame": host, "device": busy, "readback_check": readback}
+    print("ext frame: " + json.dumps(line), flush=True)
     return line
 
 
@@ -1056,6 +1296,14 @@ def main() -> int:
         phase_slice(device, "1024x1024", 16, workdir)
         for mesh in (None, one_card_mesh(device)):
             phase_slice(device, "1024x1024", 8, workdir, mesh=mesh, profile=True)
+    scene = user_scene()
+    ext = phase_ext_kernels(device, scene, GridConfig(4, 4, 16), reps=20, sass=sass)
+    phase_ext_frame(device, scene, frames=3, timed=5)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as workdir:
+        esl = {mode: phase_slice(device, "1024x1024", 16, workdir, ext_io=mode)
+               for mode in ("compact", "nocompact", "off")}
+        for mode in esl:
+            phase_slice(device, "1024x1024", 8, workdir, profile=True, ext_io=mode)
     if torch.cuda.device_count() > 1:
         from particle_simulator_tpu_torch.parallel.domain import make_mesh
 
@@ -1095,9 +1343,20 @@ def main() -> int:
                      msl["launches"]["place_halo"], 0.0, hms["place"], hms["place_plain"],
                      hbnd["place"], hms["place_library"]),
     ]
-    print("library calls: bucket_step(_halo), bucket_dest(_halo), allpairs_step none (no "
-          "single PyTorch call computes the Mie step, the pull-order rank or the all-pairs "
-          "forces); bucket_place(_halo) torch.index_copy into a tombstone table", flush=True)
+    ems, ebnd = ext["user"]["ms"], ext["user"]["bound"]
+    eerr = max(line["max_abs_err_v"] for line in ext.values())
+    kernels += [
+        kernel_entry("bucket_step_ext", "bucket_step.cu", EXT_KERNEL,
+                     esl["nocompact"]["launches"]["step_ext"], eerr, ems["ext"],
+                     ems["ext_plain"], ebnd, None),
+        kernel_entry("bucket_step_compact", "bucket_step.cu", COMPACT_KERNEL,
+                     esl["compact"]["launches"]["step_compact"], eerr, ems["compact"],
+                     ems["compact_plain"], ebnd, None),
+    ]
+    print("library calls: bucket_step(_halo, _ext, _compact), bucket_dest(_halo), "
+          "allpairs_step none (no single PyTorch call computes the Mie step, the pull-order "
+          "rank or the all-pairs forces); bucket_place(_halo) torch.index_copy into a "
+          "tombstone table", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

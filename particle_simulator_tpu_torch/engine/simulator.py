@@ -13,7 +13,11 @@ Counterpart of ``particle_simulator_tpu/engine/simulator.py``:
   back and lays them out again through ``load_frame``;
 - ``frame_async`` enqueues one frame of kernel launches on the current CUDA
   stream and returns (CUDA's own asynchrony gives the compute/readback
-  overlap the daemon relies on); CPU tensors run the plain versions;
+  overlap the daemon relies on); CPU tensors run the plain versions. A
+  MatrixBuckets scene whose occupancy leaves lane chunks to skip
+  (``_lane_chunks_for``, chosen at load) runs the ext-layout frame when
+  ``PS_EXT_IO`` asks for it (``_ext_io_mode``; the default ``off`` keeps
+  the classic step, as in the JAX engine);
 - ``start_readback`` packs the live particles of a bucket grid on the
   device (``ops/readback.py``), or takes a CompactArray state whole, and
   starts the copy into pinned host buffers; ``read_frame`` waits on the
@@ -39,6 +43,7 @@ CompactArray runs unsharded on the requested device.
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 from typing import Optional
@@ -148,6 +153,43 @@ def _grid_for(
     return cfg
 
 
+def _ext_io_mode() -> tuple[bool, bool]:
+    """(ext_io, compact_tiles) of the MatrixBuckets frame on the card, from
+    ``PS_EXT_IO``, read at every frame as the JAX engine reads it:
+    ``compact``, ``auto``, ``on`` or ``1`` run the ext-layout step on the
+    live tiles only, ``nocompact`` on every tile; anything else, and the
+    default ``off``, the classic step."""
+    mode = os.environ.get("PS_EXT_IO", "off").lower()
+    if mode in ("compact", "auto", "on", "1"):
+        return True, True
+    if mode == "nocompact":
+        return True, False
+    return False, True
+
+
+def _lane_chunk_candidates(grid: GridConfig) -> list[int]:
+    """The lane-chunk counts a grid can be split into, largest first: each
+    of 8, 4, 2 that divides BX into chunks of at least 1024 slot lanes, a
+    multiple of 128 (the JAX engine's rule, kept so both pick alike)."""
+    lanes = grid.bx * grid.cap
+    return [c for c in (8, 4, 2)
+            if not (grid.bx % c or (lanes // c) % 128 or lanes // c < 1024)]
+
+
+def _lane_chunks_for(occ: np.ndarray, grid: GridConfig) -> int:
+    """The lane-chunk count of a scene from its (BY, BX) bucket occupancy:
+    the largest candidate whose 8-row tiles are at most 75% live, else 1
+    (the JAX engine's ``_lane_chunks_for``). The ext-layout frame runs only
+    on scenes that get more than 1."""
+    for c in _lane_chunk_candidates(grid):
+        by8 = (grid.by + 7) // 8
+        occ_p = np.pad(occ, ((0, by8 * 8 - grid.by), (0, 0)))
+        tiles = occ_p.reshape(by8, 8, c, grid.bx // c).max(axis=(1, 3)) > 0
+        if tiles.mean() <= 0.75:
+            return c
+    return 1
+
+
 class Simulator:
     """Holds the scene on a device and advances it frame by frame.
     ``device`` is the card the ``GPU`` requests run on; it defaults to CUDA
@@ -182,6 +224,9 @@ class Simulator:
         self.data_structure = DataStructure.MATRIX_BUCKETS
         # the device the state lives on, and the Device the wire echoes
         self.run_device, self.active_device = self._target_device(Device.GPU)
+        # the Device the scene's frames asked for (a GPU request on a CPU
+        # Simulator runs on the CPU but still takes the ext-layout frame)
+        self.requested_device = Device.GPU
         # readback pack sizes (ops/readback.py): kcap = the occupied slot
         # prefix the pack gathers from (sticky power of two; grows on
         # overflow, halves after a long low streak); ncap = the pack length
@@ -189,9 +234,12 @@ class Simulator:
         self._readback_k = 8
         self._readback_ncap = 1
         self._readback_low_streak = 0
-        # the runner of the last frame_async: "bucket-cuda", "allpairs-cuda",
-        # "sharded-cuda", "bucket-torch-cpu", "allpairs-torch-cpu" or
-        # "sharded-torch-cpu"
+        # lane chunks of the ext-layout frame, from the scene's occupancy at
+        # load (_lane_chunks_for); 1 = the classic step whatever PS_EXT_IO says
+        self._lane_chunks = 1
+        # the runner of the last frame_async: "bucket-<where>",
+        # "bucket-ext-<where>", "bucket-compact-<where>", "allpairs-<where>"
+        # or "sharded-<where>", where is "cuda" or "torch-cpu"
         self.active_kernel: str | None = None
 
     def _target_device(self, requested: Device) -> tuple[torch.device, Device]:
@@ -218,6 +266,7 @@ class Simulator:
         """Full scene reset from a non-empty editor frame."""
         meta = frame.metadata
         self.data_structure = meta.data_structure
+        self.requested_device = meta.device
         self.run_device, self.active_device = self._target_device(meta.device)
         rec = meta.copy()
         # echo the device actually running in outbound metadata
@@ -227,6 +276,7 @@ class Simulator:
         live = parts[parts["ty"] >= 0]
         t0 = time.perf_counter()
         self.sharded = False
+        self._lane_chunks = 1
         if self.data_structure == DataStructure.COMPACT_ARRAY:
             capacity = compact_capacity(len(live))
             self.grid = self.base_grid
@@ -251,8 +301,9 @@ class Simulator:
             self._readback_k = pow2_at_least(int(occ.max(initial=0)))
             self._readback_ncap = pow2_at_least(len(live))
             self._readback_low_streak = 0
+            self._lane_chunks = _lane_chunks_for(occ.reshape(g.by, g.bx), g)
             layout = bucketize_numpy(live, g)
-            desc = f"grid {g.bx}x{g.by}x{g.cap}"
+            desc = f"grid {g.bx}x{g.by}x{g.cap} lane_chunks {self._lane_chunks}"
             if self.mesh is None:
                 self.state = state_from_numpy(layout, g.capacity, self.run_device).reshape(
                     g.grid_shape)
@@ -284,12 +335,13 @@ class Simulator:
             requested_ds = DataStructure(int(new["data_structure"]))
             requested_dev = Device(int(new["device"]))
         except ValueError:
-            requested_ds, requested_dev = self.data_structure, self.active_device
+            requested_ds, requested_dev = self.data_structure, self.requested_device
         _, active_device = self._target_device(requested_dev)
         if requested_ds != self.data_structure or active_device != self.active_device:
             parts = state_to_numpy(self._grid_state())
             self.load_frame(Frame.from_particles(new, parts[parts["ty"] >= 0]))
             return
+        self.requested_device = requested_dev
         new["data_structure"] = int(self.data_structure)
         new["device"] = int(self.active_device)
         self._set_meta(new)
@@ -298,7 +350,11 @@ class Simulator:
     def frame_async(self) -> None:
         """Enqueue one frame (steps_per_frame steps) and return. The
         wrappers launch the CUDA kernels for a state on the card and run the
-        plain versions for a state on the CPU."""
+        plain versions for a state on the CPU. An unsharded MatrixBuckets
+        scene asked for on the GPU runs the ext-layout frame when
+        ``PS_EXT_IO`` asks for it and the scene has more than one lane
+        chunk; its tiles are ``2^(gpu_threads_per_block_log2 - 4)`` bucket
+        rows where they fit (the JAX engine's launch-width mapping)."""
         if self.state is None:
             return
         steps = self.params.steps_per_frame
@@ -312,9 +368,18 @@ class Simulator:
             self.state = run_frame_allpairs_cuda(self.state, self._pvec, steps)
             self.active_kernel = f"allpairs-{where}"
         else:
-            self.state = run_frame_bucket_cuda(self.state, self._pvec, steps,
-                                               self.grid.move_every)
-            self.active_kernel = f"bucket-{where}"
+            ext_io, compact = _ext_io_mode()
+            if ext_io and self._lane_chunks > 1 and self.requested_device == Device.GPU:
+                k = int(self.meta_record["gpu_threads_per_block_log2"])
+                self.state = run_frame_bucket_cuda(
+                    self.state, self._pvec, steps, self.grid.move_every,
+                    lane_chunks=self._lane_chunks, ext_io=True, compact_tiles=compact,
+                    block_rows=max(1, 1 << max(0, k - 4)))
+                self.active_kernel = f"bucket-{'compact' if compact else 'ext'}-{where}"
+            else:
+                self.state = run_frame_bucket_cuda(self.state, self._pvec, steps,
+                                                   self.grid.move_every)
+                self.active_kernel = f"bucket-{where}"
 
     # -- readback ----------------------------------------------------------------
     def _grid_state(self) -> ParticleState:

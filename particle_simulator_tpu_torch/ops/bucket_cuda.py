@@ -14,17 +14,26 @@ Counterpart of ``particle_simulator_tpu/ops/bucket_pallas.py``:
   ``move_dest_halo_cuda``    -> ``csrc/bucket_dest.cu`` with ``ring = 1``
   (``_dest_kernel(halo=True)``), ``bucket_place_halo_cuda`` ->
   ``csrc/bucket_place.cu`` into the interior (``_place_edge_kernel``), and
-  ``bucket_move_halo_cuda`` = dest then place.
+  ``bucket_move_halo_cuda`` = dest then place;
+- the ext-layout step, which a lane-chunked frame runs with ``ext_io``
+  (``run_frame_bucket_pallas``'s ext branch): ``bucket_step_ext_cuda`` ->
+  ``csrc/bucket_step.cu``'s tile-scheduled instance, ``compact=True``
+  (``_step_kernel_compact``, live tiles only) or ``compact=False``
+  (``_step_kernel`` with ``out_off=0``, every tile).
 
 Each wrapper checks dtype, shape, contiguity and device. A state on the CPU
 goes to the plain PyTorch version in ``physics/bucket.py``; a state on a
 CUDA device launches the kernel on ``torch.cuda.current_stream()``; any other
-device raises. Outputs are allocated fresh on every call, so a state a
-readback still holds is never overwritten. ``LAUNCHES`` counts kernel
-launches per kernel, and only those.
+device raises. Outputs are allocated fresh on every call, or, for the
+ext-layout step, are the spare buffer of a pair the frame allocated for its
+move chunk, so a state a readback still holds is never overwritten.
+``LAUNCHES`` counts kernel launches per kernel, and only those.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -32,7 +41,11 @@ from particle_simulator_tpu_torch.engine.state import NPARAMS, ParticleState
 from particle_simulator_tpu_torch.physics import bucket
 
 LAUNCHES = {"step": 0, "dest": 0, "place": 0,
-            "step_halo": 0, "dest_halo": 0, "place_halo": 0}
+            "step_halo": 0, "dest_halo": 0, "place_halo": 0,
+            "step_ext": 0, "step_compact": 0}
+
+# blocks of one ext-layout step launch per SM of the card (ps_bucket_step_tiles)
+TILE_BLOCKS_PER_SM = 64
 
 _DTYPES = (torch.int32, torch.int32, torch.float32, torch.float32, torch.int32)
 
@@ -137,11 +150,96 @@ def bucket_move_cuda(state: ParticleState) -> ParticleState:
     return bucket_place_cuda(state, move_dest_cuda(state))
 
 
+class ExtPair(NamedTuple):
+    """The two buffers a move chunk's ext-layout steps run between: ``cur``
+    is the chunk's state, ``spare`` the buffer the next step writes (its x,
+    y, vx, vy; its ty is ``cur``'s, which no step writes). Both hold the
+    same bytes on every slot no step of the chunk writes: every tombstone,
+    so every dead tile."""
+
+    cur: ParticleState
+    spare: ParticleState
+
+
+def ext_pair(state: ParticleState) -> ExtPair:
+    """A fresh pair for ``state``: two copies of its x, y, vx, vy, never
+    its own buffers (a readback may hold them), sharing its ty."""
+    def copy():
+        return ParticleState(*(a.clone() for a in state[:4]), state.ty)
+
+    return ExtPair(copy(), copy())
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def bucket_step_ext_cuda(pair, aux: bucket.ExtStepAux, compact: bool):
+    """One ext-layout step (``bucket_step_pallas_ext``) over the tiles of
+    ``aux`` (``physics/bucket.py:ext_step_aux`` of the chunk's state):
+    ``compact`` visits the live tiles only, else every tile. ``pair`` is an
+    ``ExtPair``, and the result the pair after the step (the stepped state
+    in ``cur``, the input's buffers as the spare); a ``ParticleState`` is
+    stepped through a fresh pair and the stepped state returned."""
+    if isinstance(pair, ParticleState):
+        return bucket_step_ext_cuda(ext_pair(pair), aux, compact).cur
+    cur, spare = pair
+    on_cuda = _on_cuda(cur)
+    check_fields(spare)
+    if spare.x.shape != cur.x.shape or spare.x.device != cur.x.device:
+        raise ValueError(f"spare buffers {tuple(spare.x.shape)} on {spare.x.device} differ "
+                         f"from the state's {tuple(cur.x.shape)} on {cur.x.device}")
+    if any(a.data_ptr() == b.data_ptr() for a in cur[:4] for b in spare[:4]):
+        raise ValueError("the spare buffers share memory with the state")
+    by, bx, cap = cur.x.shape
+    if aux.lane_chunks < 1 or bx % aux.lane_chunks or by % aux.ty_rows:
+        raise ValueError(f"tiles of {aux.ty_rows} rows x {aux.lane_chunks} chunks do not "
+                         f"divide a {by}x{bx} grid")
+    n_tiles = by // aux.ty_rows * aux.lane_chunks
+    device = cur.x.device
+    check_aux(aux.params, "params", torch.float32, (NPARAMS + 1,), device)
+    for name in ("flags", "order"):
+        check_aux(getattr(aux, name), name, torch.int32, (n_tiles,), device)
+    check_aux(aux.sizes, "sizes", torch.int32, (1,), device)
+    if not on_cuda:
+        return ExtPair(bucket.bucket_step_ext(cur, aux, compact), cur)
+    with torch.cuda.device(device):
+        budget = TILE_BLOCKS_PER_SM * _sm_count(torch.cuda.current_device())
+        launch("ps_bucket_step_tiles", *(a.data_ptr() for a in cur),
+               *(t.data_ptr() for t in aux[:4]), *(o.data_ptr() for o in spare[:4]),
+               by, bx, cap, aux.ty_rows, aux.lane_chunks, int(compact), budget)
+    LAUNCHES["step_compact" if compact else "step_ext"] += 1
+    return ExtPair(ParticleState(*spare[:4], cur.ty), cur)
+
+
 def run_frame_bucket_cuda(state: ParticleState, params: torch.Tensor, steps: int,
-                          move_every: int = 16) -> ParticleState:
+                          move_every: int = 16, lane_chunks: int = 1, ext_io: bool = False,
+                          compact_tiles: bool = True,
+                          block_rows: int | None = None) -> ParticleState:
     """One frame: ``steps`` kernel steps, rebucketing before steps 1, 1+k, ...
     (``physics/bucket.py:chunked_frame_schedule``). ``steps`` is a plain int,
-    so a live steps-per-frame edit changes nothing but the loop count."""
+    so a live steps-per-frame edit changes nothing but the loop count.
+
+    With ``ext_io`` and ``lane_chunks`` > 1, the ext-layout frame
+    (``run_frame_bucket_pallas``'s ext branch): each run of steps enters by
+    computing the tile aux (``lane_chunks`` chunks, tiles of ``block_rows``
+    rows where they fit) and a fresh buffer pair, steps with the
+    tile-scheduled kernel (live tiles only with ``compact_tiles``), and
+    exits with the current buffer. The rebucket is the classic one.
+    Otherwise every step is the classic step."""
+    if ext_io and lane_chunks > 1:
+        def enter(s):
+            return ext_pair(s), bucket.ext_step_aux(s, params, lane_chunks, block_rows)
+
+        def step(carry):
+            pair, aux = carry
+            return bucket_step_ext_cuda(pair, aux, compact_tiles), aux
+
+        return bucket.chunked_frame_schedule(
+            state, steps, move_every, step, bucket_move_cuda,
+            enter=enter, exit=lambda carry: carry[0].cur,
+        )
     return bucket.chunked_frame_schedule(
         state, steps, move_every, lambda s: bucket_step_cuda(s, params), bucket_move_cuda,
     )

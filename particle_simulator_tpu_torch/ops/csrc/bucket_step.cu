@@ -116,6 +116,121 @@ __global__ void bucket_step_kernel(
   leapfrog(sc, xi, yi, vxi, vyi, fx, fy, ox[i], oy[i], ovx[i], ovy[i]);
 }
 
+// The ext-layout step: the port of bucket_pallas.py:bucket_step_pallas_ext,
+// whose two pallas_calls are _step_kernel_compact (compact=True, the grid
+// visits ExtStepAux.order: live tiles first, then repeats of the last one)
+// and _step_kernel with out_off=0 (compact=False, the natural tile grid, a
+// dead tile copied through). Plain version: physics/bucket.py:
+// bucket_step_ext; aux: physics/bucket.py:ext_step_aux.
+//
+// Tile t is row block t / n_chunks (ty_rows bucket rows) x lane chunk
+// t % n_chunks (gx / n_chunks buckets), all cap slots: on the 1M user scene
+// 8 x 128 x 16 = 16,384 slots. blockIdx.x picks the thread's slot of a tile
+// (one thread a slot, neighbouring threads on neighbouring slots; COMPACT
+// gives threads only to the slots below omax); the blocks of one blockIdx.x
+// column walk the tile list from blockIdx.y with stride gridDim.y, so a
+// launch sized for the card covers every live tile without the host
+// learning how many there are.
+//
+// Inside a live tile every slot does exactly what bucket_step_kernel<false>
+// does, in the same candidate order with the same rounding, so the result
+// is bit-identical to the classic step; the one difference is that the
+// candidate loop stops at omax (params[P_OMAX], the largest live slot index
+// + 1 over the grid) instead of cap, which is exact: every slot at or past
+// omax is a tombstone. The tile's flag is read once per tile, so a dead
+// tile costs no per-slot ty read.
+//
+// COMPACT: the walk ends at sizes[0]; a dead tile (only the all-dead
+// grid's one visit) and a dead slot write nothing. The wrapper steps
+// between two buffers that hold the same bytes on every slot no step of
+// the chunk writes (the counterpart of the Pallas call's input/output
+// aliasing, at slot grain), so a tombstone below omax costs a 4-byte ty
+// read and dead tiles and the slots past omax cost nothing. Otherwise
+// every tile is visited and every slot written; a dead tile is a plain
+// coalesced copy.
+//
+// What bounds it: as the classic step, the pair math of the live slots
+// (operations); the dead slots' 36 bytes each are what COMPACT removes, and
+// on a sparse cap-16 grid the idle lanes of the classic mapping (about 4 of
+// a bucket's 16 slots live) cost more than those bytes (PERF.md).
+constexpr int P_OMAX = P_COUNT;  // the aux appends omax to the params vector
+
+template <bool COMPACT>
+__global__ void bucket_step_tiles_kernel(
+    const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
+    const float* __restrict__ vx, const float* __restrict__ vy,
+    const int32_t* __restrict__ ty, const float* __restrict__ params,
+    const int32_t* __restrict__ flags, const int32_t* __restrict__ order,
+    const int32_t* __restrict__ sizes,
+    uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
+    float* __restrict__ ovx, float* __restrict__ ovy,
+    int gy, int gx, int cap, int ty_rows, int n_chunks) {
+  __shared__ StepScalars sc;
+  if (threadIdx.x == 0) step_scalars(params, sc);
+  __syncthreads();
+
+  // the thread's slot of a tile: row r, bucket b of the row, slot s_own; with
+  // COMPACT only the slots below omax get threads (the others are
+  // tombstones, which it does not write), so a warp's lanes are mostly live
+  // receivers where the classic mapping leaves cap - omax of every
+  // bucket's lanes idle
+  const int omax = (int)__ldg(params + P_OMAX);
+  const int width = COMPACT ? omax : cap;
+  const int row_buckets = gx / n_chunks;
+  const int row_slots = row_buckets * width;
+  const int li = blockIdx.x * blockDim.x + threadIdx.x;
+  if (li >= ty_rows * row_slots) return;
+  const int r = li / row_slots, c = li - r * row_slots;
+  const int b = c / width, s_own = c - b * width;
+  const int n_visits = COMPACT ? __ldg(sizes) : (gy / ty_rows) * n_chunks;
+
+  for (int k = blockIdx.y; k < n_visits; k += gridDim.y) {
+    const int tile = COMPACT ? __ldg(order + k) : k;
+    const bool live = __ldg(flags + tile) != 0;
+    if (COMPACT && !live) continue;
+    const int chunk = tile % n_chunks;
+    const int cby = (tile / n_chunks) * ty_rows + r;
+    const int cbx = chunk * row_buckets + b;
+    const long i = ((long)cby * gx + cbx) * cap + s_own;
+    if (COMPACT) {
+      if (ty[i] < 0) continue;
+    } else if (!live || ty[i] < 0) {
+      ox[i] = x[i];  // dead tile or tombstone: copy through
+      oy[i] = y[i];
+      ovx[i] = vx[i];
+      ovy[i] = vy[i];
+      continue;
+    }
+    const uint32_t xi = x[i], yi = y[i];
+    const float vxi = vx[i], vyi = vy[i];
+
+    float fx, fy;
+    external_force(sc, xi, yi, fx, fy);
+
+    // the classic step's candidate order: dy outer, dx inner, slots ascending
+    for (int dy = -1; dy <= 1; ++dy) {
+      const int nby = cby + dy;
+      if (nby < 0 || nby >= gy) continue;
+      for (int dx = -1; dx <= 1; ++dx) {
+        const int nbx = cbx + dx;
+        if (nbx < 0 || nbx >= gx) continue;
+        const long base = ((long)nby * gx + nbx) * cap;
+        for (int s = 0; s < omax; ++s) {
+          const long j = base + s;
+          if (j == i || __ldg(ty + j) < 0) continue;
+          const float ddx = __fmul_rn(__int2float_rn((int32_t)(__ldg(x + j) - xi)), sc.scale_x);
+          const float ddy = __fmul_rn(__int2float_rn((int32_t)(__ldg(y + j) - yi)), sc.scale_y);
+          const float f = pair_f_over_r(sc, __fadd_rn(__fmul_rn(ddx, ddx), __fmul_rn(ddy, ddy)));
+          fx = __fadd_rn(fx, __fmul_rn(f, ddx));
+          fy = __fadd_rn(fy, __fmul_rn(f, ddy));
+        }
+      }
+    }
+
+    leapfrog(sc, xi, yi, vxi, vyi, fx, fy, ox[i], oy[i], ovx[i], ovy[i]);
+  }
+}
+
 }  // namespace
 
 // n_grids stacked (gy, gx, cap) grids; ring = 0 steps every live slot of a
@@ -139,6 +254,42 @@ extern "C" int ps_bucket_step(
         (const uint32_t*)x, (const uint32_t*)y, (const float*)vx,
         (const float*)vy, (const int32_t*)ty, (const float*)params,
         (uint32_t*)ox, (uint32_t*)oy, (float*)ovx, (float*)ovy, gy, gx, cap);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The ext-layout step of one (gy, gx, cap) grid over its tiles (ty_rows
+// rows x gx / n_chunks buckets). compact = 1 visits order[0 .. sizes[0])
+// and writes only live slots; compact = 0 visits every tile and writes
+// every slot. The launch has about block_budget blocks: each tile's slots
+// span gridDim.x blocks, and gridDim.y (at most the tile count) block
+// columns walk the tile list.
+extern "C" int ps_bucket_step_tiles(
+    const void* x, const void* y, const void* vx, const void* vy,
+    const void* ty, const void* params, const void* flags, const void* order,
+    const void* sizes, void* ox, void* oy, void* ovx, void* ovy,
+    int gy, int gx, int cap, int ty_rows, int n_chunks, int compact,
+    int block_budget, void* stream) {
+  const int threads = 128;
+  const unsigned tile_x = ps_blocks((long)ty_rows * (gx / n_chunks) * cap, threads);
+  const int n_tiles = (gy / ty_rows) * n_chunks;
+  const int walkers = (int)((block_budget + tile_x - 1) / tile_x);
+  const dim3 blocks(tile_x, walkers < 1 ? 1 : (walkers > n_tiles ? n_tiles : walkers));
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (compact) {
+    bucket_step_tiles_kernel<true><<<blocks, threads, 0, s>>>(
+        (const uint32_t*)x, (const uint32_t*)y, (const float*)vx,
+        (const float*)vy, (const int32_t*)ty, (const float*)params,
+        (const int32_t*)flags, (const int32_t*)order, (const int32_t*)sizes,
+        (uint32_t*)ox, (uint32_t*)oy, (float*)ovx, (float*)ovy,
+        gy, gx, cap, ty_rows, n_chunks);
+  } else {
+    bucket_step_tiles_kernel<false><<<blocks, threads, 0, s>>>(
+        (const uint32_t*)x, (const uint32_t*)y, (const float*)vx,
+        (const float*)vy, (const int32_t*)ty, (const float*)params,
+        (const int32_t*)flags, (const int32_t*)order, (const int32_t*)sizes,
+        (uint32_t*)ox, (uint32_t*)oy, (float*)ovx, (float*)ovy,
+        gy, gx, cap, ty_rows, n_chunks);
   }
   return (int)cudaGetLastError();
 }

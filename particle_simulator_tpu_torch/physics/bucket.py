@@ -24,6 +24,15 @@ on a shard padded with one ring of its neighbours' buckets:
 
 The single-device functions are the halo ones on a tombstone ring. The halo
 functions take a stack of shards (leading axes) as well as one shard.
+
+The ext-layout step, the step of a lane-chunked frame that the JAX package
+runs on its persistent pad-extended layout, works on tiles of the plain
+grid: ``ext_step_aux`` computes the per-tile liveness, the live-tiles-first
+visit order and the occupancy bound once per move chunk, and
+
+- ``bucket_step_ext`` <-> ``bucket_step.cu``'s tile-scheduled instance
+  (``compact`` False: every tile in natural order; True: the live tiles
+  only).
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ import numpy as np
 import torch
 
 from particle_simulator_tpu_torch.io.frame import PARTICLE_DTYPE
-from particle_simulator_tpu_torch.engine.state import ParticleState, empty_state
+from particle_simulator_tpu_torch.engine.state import NPARAMS, ParticleState, empty_state
 from particle_simulator_tpu_torch.physics.mie import (
     bucket_of,
     leapfrog_apply,
@@ -320,6 +329,95 @@ def bucket_move_direct_halo(padded: ParticleState, bx_log2: int, by_log2: int,
 
 
 # ---------------------------------------------------------------------------
+# ext-layout step: tiles, their aux, and the plain version
+# ---------------------------------------------------------------------------
+
+class ExtStepAux(NamedTuple):
+    """The ty-derived inputs of the ext-layout step, computed once per move
+    chunk (ty does not change between rebucket passes). A tile is
+    ``ty_rows`` bucket rows x ``BX / lane_chunks`` buckets; tile
+    ``block * lane_chunks + chunk`` is row block ``block``, lane chunk
+    ``chunk`` (the JAX package's numbering)."""
+
+    params: torch.Tensor  # (11,) f32: SimParams.vector, then omax
+    flags: torch.Tensor   # (n_tiles,) i32: 1 where the tile holds a live slot
+    order: torch.Tensor   # (n_tiles,) i32: live tiles ascending, then the last one repeated
+    sizes: torch.Tensor   # (1,) i32: max(live tiles, 1), the real visits of ``order``
+    ty_rows: int
+    lane_chunks: int
+
+
+def _pick_ty_rows(by: int, lanes: int, requested: int | None = None) -> int:
+    """Bucket rows per tile: ``requested`` where it divides ``by`` and fits
+    the budget of ``max(8, 32768 // lanes)`` rows, else 16, else 8, else
+    ``by`` (``lanes`` = BX * CAP). The JAX package's ``_pick_ty_rows``,
+    unchanged, so both number the tiles alike."""
+    budget = max(8, 32768 // lanes)
+    candidates = (requested,) if requested else ()
+    for ty in (*candidates, 16, 8):
+        if ty and ty <= budget and by % ty == 0 and by >= ty:
+            return ty
+    return by
+
+
+def ext_step_aux(state: ParticleState, params: torch.Tensor, lane_chunks: int,
+                 block_rows: int | None = None) -> ExtStepAux:
+    """The tile aux of a (BY, BX, CAP) state, on its device and without a
+    host sync: ``omax`` (the largest live slot index + 1 over the grid)
+    appended to ``params``, the tile flags, and the visit order, with an
+    all-dead grid visiting tile 0 once (``sizes`` = [1])."""
+    by, bx, cap = state.ty.shape
+    c = int(lane_chunks)
+    if c < 1 or bx % c:
+        raise ValueError(f"lane_chunks={lane_chunks} must divide bx={bx}")
+    ty_rows = _pick_ty_rows(by, bx * cap, block_rows)
+    n_blocks = by // ty_rows
+    dev = state.ty.device
+    slot_no = torch.arange(1, cap + 1, dtype=torch.int32, device=dev)
+    omax = torch.where(state.ty >= 0, slot_no, 0).amax()
+    params = torch.cat([params[:NPARAMS], omax.to(torch.float32).reshape(1)])
+    tiles = state.ty.reshape(n_blocks, ty_rows, c, (bx // c) * cap).amax(dim=(1, 3))
+    live = (tiles >= 0).reshape(-1)
+    n_real = live.sum(dtype=torch.int32).clamp(min=1).reshape(1)
+    order0 = torch.argsort((~live).to(torch.int32), stable=True)
+    last_live = order0[(n_real - 1).long()]
+    idx = torch.arange(live.numel(), device=dev)
+    order = torch.where(idx < n_real, order0, last_live).to(torch.int32)
+    return ExtStepAux(params, live.to(torch.int32), order, n_real, ty_rows, c)
+
+
+def _tile_slots(tiles: torch.Tensor, aux: ExtStepAux, shape) -> torch.Tensor:
+    """A per-tile (n_tiles,) mask spread over the slots of a (BY, BX, CAP)
+    grid, as a broadcastable (BY, BX, 1) mask."""
+    by, bx, _ = shape
+    c = aux.lane_chunks
+    per_tile = tiles.reshape(by // aux.ty_rows, 1, c, 1)
+    return per_tile.expand(-1, aux.ty_rows, -1, bx // c).reshape(by, bx, 1)
+
+
+def bucket_step_ext(state: ParticleState, aux: ExtStepAux, compact: bool) -> ParticleState:
+    """The ext-layout step: ``bucket_step`` on the tiles the kernel visits,
+    the input on the others. ``compact`` False visits the live tiles of the
+    natural tile grid (a dead tile is copied through); True visits the
+    first ``sizes[0]`` entries of ``order`` that are live. Either way the
+    result equals ``bucket_step(state)`` bit for bit: a tile left alone
+    holds only tombstones, which the step passes through, and the receivers
+    of the others are stepped on the whole grid's element layout, as
+    ``bucket_step`` steps them (no gather of live receivers)."""
+    if compact:
+        first = torch.arange(aux.order.numel(), device=aux.order.device) < aux.sizes
+        visits = torch.zeros_like(aux.flags).index_add_(0, aux.order.long(),
+                                                        first.to(torch.int32))
+        visited = (visits > 0) & (aux.flags != 0)
+    else:
+        visited = aux.flags != 0
+    keep_new = _tile_slots(visited, aux, state.ty.shape)
+    stepped = bucket_step(state, aux.params[:NPARAMS])
+    return ParticleState(*(torch.where(keep_new, s, a) for s, a in zip(stepped[:4], state[:4])),
+                         state.ty)
+
+
+# ---------------------------------------------------------------------------
 # frame schedule
 # ---------------------------------------------------------------------------
 
@@ -327,20 +425,32 @@ def chunked_frame_schedule(
     state: ParticleState,
     steps: int,
     move_every: int,
-    step: Callable[[ParticleState], ParticleState],
+    step: Callable,
     move: Callable[[ParticleState], ParticleState],
+    enter: Callable | None = None,
+    exit: Callable | None = None,
 ) -> ParticleState:
     """``steps`` physics steps with ``move`` before steps 1, 1+k, 1+2k, ...
-    (k = ``move_every``): one step, then chunks of (move, <= k steps)."""
+    (k = ``move_every``): one step, then chunks of (move, <= k steps).
+    ``enter``/``exit`` bracket each run of steps, not the move: ``step``
+    gets ``enter(state)``'s value and ``exit`` turns the run's result back
+    into a state, so step 0 is ``exit(step(enter(state)))``. The ext-layout
+    frame builds its per-chunk buffers and tile aux there; the identity
+    defaults leave the classic frame as it was."""
+    enter = enter or (lambda s: s)
+    exit = exit or (lambda s: s)
     if steps < 1:
         return state
-    state = step(state)
+    state = exit(step(enter(state)))
     done = 1
     while done < steps:
         state = move(state)
-        for _ in range(min(move_every, steps - done)):
-            state = step(state)
-        done += min(move_every, steps - done)
+        run = min(move_every, steps - done)
+        carry = enter(state)
+        for _ in range(run):
+            carry = step(carry)
+        state = exit(carry)
+        done += run
     return state
 
 

@@ -1,9 +1,11 @@
 """The CPU-side helpers of ``chip_smoke.py``: the SASS loop count that sets
 the arithmetic bounds, the bound arithmetic, the bucket-step pair counts,
-the place library calls and the device busy-share arithmetic. The card's own
+the place library calls, the device busy-share arithmetic, the ext step's
+bound and live-tile share and the readback check. The card's own
 phases run only on the card."""
 
 import numpy as np
+import pytest
 import torch
 
 import chip_smoke
@@ -97,3 +99,71 @@ def test_busy_summary_merges_overlaps_and_windows():
     assert np.isclose(steady["busy_share"], 20 / 30)  # from 40 to 70 us
     assert steady["busy_ms_by_op"] == {"step_kernel": 0.02}
     assert chip_smoke.busy_summary([]) is None
+
+
+def quarter_live_dense(cfg):
+    """The dense bench scene with only its top-left quarter kept."""
+    parts, _, _ = chip_smoke.dense_grid_scene(cfg)
+    state = state_from_numpy(parts, cfg.capacity).reshape(cfg.grid_shape)
+    state.ty[cfg.by // 2:] = -1
+    state.ty[:, cfg.bx // 2:] = -1
+    return state
+
+
+def test_ext_bound_counts_live_slots_pairs_and_tiles():
+    """Phase 12's bound of a tile-scheduled state: the live slots' bytes and
+    the live pairs (a dead tile adds neither), and its live-tile share."""
+    cfg = bucket.GridConfig(4, 4, 8)  # 16 x 16 buckets: 2 x 2 tiles of 8 rows x 8 buckets
+    state = quarter_live_dense(cfg)
+    params = torch.zeros(10)
+    aux = bucket.ext_step_aux(state, params, 2, 8)
+    assert aux.flags.tolist() == [1, 0, 0, 0]
+    assert chip_smoke.live_tile_share(aux) == 0.25
+    nbr = bucket.gather_neighborhood(state)
+    own = bucket._self_pair_mask(cfg.cap, "cpu")
+    valid = (nbr.ty[..., None, :] >= 0) & ~own & (state.ty[..., :, None] >= 0)
+    pairs = chip_smoke.bucket_pairs(state)
+    assert pairs == int(valid.sum()) > 0
+    counts = {"fp32_per_pair": 50.0, "mufu_per_pair": 2.0}
+    live = int((state.ty >= 0).sum())
+    assert live == 7 * 7 * 8  # the outer ring of the dense scene is empty
+    assert chip_smoke.ext_bound(state, counts) == chip_smoke.bound(
+        36 * live, chip_smoke.ops_bound_ms(pairs, counts))
+
+
+def lattice_frame():
+    """A hex lattice in the left of a 16:1 box: a 256 x 16 x 8 grid whose
+    occupancy picks 2 lane chunks."""
+    from particle_simulator_tpu_torch.io.frame import Frame, MieParams
+    from particle_simulator_tpu_torch.io.presets import ParticleLattice
+
+    frame = Frame.new()
+    meta = frame.metadata
+    side = 12 * MieParams.nitrogen().force0_r() * 1.1 / 0.5
+    meta.box_width, meta.box_height = 16 * side, side
+    meta.step_dt, meta.steps_per_frame = 1e-14, 4
+    ParticleLattice((12, 12), distance_factor=1.1, velocity=(0.0, 30.0)).hex_square(
+        frame, (side, side / 2), rng=np.random.default_rng(5))
+    return frame
+
+
+def test_readback_check_compares_ticket_bytes_and_held_state(monkeypatch):
+    """Phase 13's readback check, driven through a CPU Simulator on the
+    ext frame; its comparison fails on other bytes or a written held state."""
+    from particle_simulator_tpu_torch.engine.simulator import Simulator
+
+    monkeypatch.setenv("PS_EXT_IO", "compact")
+    sim = Simulator(bucket.GridConfig(8, 4, 8), device="cpu")
+    sim.load_frame(lattice_frame())
+    assert sim._lane_chunks == 2
+    assert chip_smoke.readback_check(sim) == {"active_kernel": "bucket-compact-torch-cpu",
+                                              "particles": 144}
+    state = sim.state
+    copy = bucket.ParticleState(*(a.clone() for a in state))
+    frame = sim.read_frame().bytes
+    chip_smoke.compare_readback(frame, frame, state, copy)
+    with pytest.raises(AssertionError, match="other bytes"):
+        chip_smoke.compare_readback(frame, frame[:-1] + bytes([frame[-1] ^ 1]), state, copy)
+    copy.vy[0, 0, 0] += 1.0
+    with pytest.raises(AssertionError, match="held state's vy"):
+        chip_smoke.compare_readback(frame, frame, state, copy)
