@@ -10,8 +10,10 @@ exits non-zero without printing a result):
 
 1. card: the device name and ``nvidia-smi`` name/power limit;
 2. build: the CUDA kernels compiled from ``ops/csrc`` with nvcc, one
-   process per source; the all-pairs kernel's main loop counted in its SASS
-   (``cuobjdump -sass``), which sets the arithmetic bounds;
+   process per source; the pair loops of the all-pairs and the tile-scheduled
+   kernels counted in their SASS (``cuobjdump -sass``), as information: the
+   arithmetic bounds use the frozen per-pair counts of the force law
+   (``FORCE_LAW_COUNTS``), so they do not move with a kernel's code;
 3. kernels: each bucket kernel against its plain PyTorch version on the
    same inputs on the card (step: ``ty`` equal, x/y within 8 fixed-point
    units, live vx/vy within rtol 1e-4, atol 1e-6; dest and place: equal), on
@@ -26,8 +28,10 @@ exits non-zero without printing a result):
    scene, in sim-steps/s and particle-steps/s;
 6. all-pairs kernel against its plain version (the step envelope) on the
    gas-diffusion scene (16,384 live, 16,384 slots) and on the liquid droplet
-   with the cursor on (2,025 live, 2,048 slots: tombstones and a ragged
-   last tile); kernel and plain times at 16,384;
+   with the cursor on (2,025 live, 2,048 slots: tombstones), and on the
+   first 5,000 particles of the gas scene (not a multiple of the sum's
+   segment length: a ragged last segment with live sources) and on 37
+   slots (30 live); kernel and plain times at 16,384, the kernel's at 2,048;
 7. CompactArray slice: this script plays the editor with the port's own
    TCP server; ``serve`` runs the gas-diffusion scene as CompactArray for at
    least 6 frames of 100 steps through the all-pairs kernel, then a
@@ -61,7 +65,11 @@ exits non-zero without printing a result):
     8 lane chunks, 8-row tiles) and the stress scene (2 chunks); on the
     user scene the classic, every-tile and live-tiles step times, the plain
     versions', the per-chunk aux and buffer-pair times, the rebucket's
-    time, the bound and the live-tile share;
+    time, the bound, the time of moving every slot's bytes once, and the
+    live-tile share; the step times again on the state four classic frames
+    later (omax 8); then both modes on small random grids of other shapes
+    (``EXT_GEOMETRIES``: caps 6, 8, 12, 64, 16-row and 4-row tiles,
+    one-bucket tiles) against the classic CUDA step;
 13. ext frame: three 100-step frames of the user scene through
     ``run_frame_bucket_cuda(ext_io=True)`` in both modes, bit-identical to
     the classic frame on every slot; the frame time of each runner (5 in
@@ -122,6 +130,13 @@ CSRC = "particle_simulator_tpu_torch/ops/csrc"
 HBM_BYTES_PER_S = 3.35e12
 FP32_INSTR_PER_S = 67e12 / 2
 MUFU_INSTR_PER_S = FP32_INSTR_PER_S / 8
+# The force law's instructions per pair on the two pipes, frozen: counted in
+# the SASS of allpairs_step_kernel's main loop (4 pairs an iteration) as
+# built from commit ef05cf4 for sm_90a and read on an NVIDIA H100 80GB HBM3
+# (309 instructions an iteration, 204 of them on the f32 pipe, 8 MUFU.EX2).
+# Every step kernel's operation bound is pairs times these over the card's
+# rates, whatever loop implements the pairs.
+FORCE_LAW_COUNTS = {"fp32_per_pair": 51.0, "mufu_per_pair": 2.0}
 _FP32_OPS = {"FADD", "FMUL", "FFMA", "FMNMX", "FSEL", "FSET", "FSETP", "FRND", "FCHK",
              "I2FP", "F2FP"}
 _MUFU_OPS = {"MUFU", "I2F", "F2I", "F2F"}
@@ -340,9 +355,35 @@ def main_loop_sass(sass: str, kernel: str) -> list[str]:
     return max(bodies, key=lambda b: b.count("MUFU.EX2"))
 
 
-def ops_bound_ms(pairs: int, sass: dict) -> float:
+def ptxas_summary(log: str) -> dict:
+    """``nvcc -Xptxas -v`` output -> {kernel: {registers, spill_stores,
+    spill_loads, smem}}, a template instance named like ``kernel<1>``."""
+    out, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            found = re.findall(r"\d+([a-z_]+_kernel)(?:ILb([01])E)?", entry.group(1))
+            name = (found[-1][0] + (f"<{found[-1][1]}>" if found[-1][1] else "")
+                    if found else entry.group(1))
+            out[name] = {}
+        elif name is not None:
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            used = re.search(r"Used (\d+) registers", line)
+            if spills:
+                out[name].update(spill_stores=int(spills.group(1)),
+                                 spill_loads=int(spills.group(2)))
+            if used:
+                smem = re.search(r"(\d+) bytes smem", line)
+                out[name].update(registers=int(used.group(1)),
+                                 smem=int(smem.group(1)) if smem else 0)
+                name = None
+    return out
+
+
+def ops_bound_ms(pairs: int, sass: dict = FORCE_LAW_COUNTS) -> float:
     """The least time of ``pairs`` pair evaluations: the busier of the f32
-    and MUFU pipes at the card's published rate."""
+    and MUFU pipes at the card's published rate, from the per-pair counts
+    ``sass`` (the frozen ``FORCE_LAW_COUNTS``)."""
     return 1e3 * pairs * max(sass["fp32_per_pair"] / FP32_INSTR_PER_S,
                              sass["mufu_per_pair"] / MUFU_INSTR_PER_S)
 
@@ -724,30 +765,49 @@ def phase_allpairs_kernel(device, reps: int, sass: dict):
     """Phase 6: the all-pairs kernel against its plain version."""
     import torch
 
+    from particle_simulator_tpu_torch.engine.state import SimParams, state_from_numpy
+    from particle_simulator_tpu_torch.ops import build
     from particle_simulator_tpu_torch.ops.allpairs_cuda import allpairs_step_cuda
-    from particle_simulator_tpu_torch.physics.step import allpairs_step
+    from particle_simulator_tpu_torch.physics import step
     from particle_simulator_tpu_torch.scenes.library import gas_diffusion, liquid_droplet
 
+    seg = step.SEGMENT
+    if build.library().ps_allpairs_segment() != seg:
+        raise AssertionError("the kernel's AP_SEGMENT differs from physics/step.py:SEGMENT")
     droplet = liquid_droplet()
     droplet.metadata.cursor_pos = (0.5, 0.5)
     droplet.metadata.cursor_size = 0.3
+    gas = gas_diffusion()
+    # every slot live and no multiple of the segment length: the last
+    # segment is ragged and holds live sources
+    ragged_n = 5000
+    gas_live = gas.particles[gas.particles["ty"] >= 0]
+    ragged = (state_from_numpy(gas_live[:ragged_n], ragged_n, device),
+              SimParams.from_record(gas.metadata.copy()).vector(device), ragged_n)
+    if ragged_n % seg == 0:
+        raise AssertionError(f"{ragged_n} slots leave no ragged segment of {seg}")
+    # fewer slots than one segment, or than two blocks' receivers: 30 live, 7 tombstones
+    tiny = (state_from_numpy(gas_live[:30], 37, device), ragged[1], 30)
     results = {}
-    for label, frame in (("gas_diffusion", gas_diffusion()), ("liquid_droplet_cursor", droplet)):
-        state, pv, live = compact_state(frame, device)
+    for label, case in (("gas_diffusion", compact_state(gas, device)),
+                        ("liquid_droplet_cursor", compact_state(droplet, device)),
+                        ("gas_ragged_segment", ragged), ("gas_37_slots", tiny)):
+        state, pv, live = case
         got = allpairs_step_cuda(state, pv)
-        ref = allpairs_step(state, pv)
+        ref = step.allpairs_step(state, pv)
         err = check_step(got, ref, label)
-        line = {"scene": label, "live": live, "slots": state.capacity,
-                "max_abs_err_v": err,
+        line = {"scene": label, "live": live, "slots": state.capacity, "L": seg,
+                "segments": -(-state.capacity // seg), "max_abs_err_v": err,
                 "bit_identical": all(torch.equal(a, b) for a, b in zip(got, ref))}
-        if label == "gas_diffusion":
+        if not line["bit_identical"]:
+            raise AssertionError(f"{label}: the all-pairs kernel and its plain version differ")
+        if label in ("gas_diffusion", "liquid_droplet_cursor"):  # the main path's shapes
             pairs = live * (live - 1)
             line["pairs_per_step"] = pairs
-            line["ms"] = {
-                "kernel": cuda_ms(lambda: allpairs_step_cuda(state, pv), reps),
-                "plain": cuda_ms(lambda: allpairs_step(state, pv), 1),
-            }
+            line["ms"] = {"kernel": cuda_ms(lambda: allpairs_step_cuda(state, pv), reps)}
             line["bound"] = bound(36 * state.capacity, ops_bound_ms(pairs, sass))
+        if label == "gas_diffusion":
+            line["ms"]["plain"] = cuda_ms(lambda: step.allpairs_step(state, pv), 1)
             line["library_ms"] = None
             line["library"] = ("none: no single PyTorch call computes Mie pair forces "
                                "(torch.cdist gives only the distances)")
@@ -1125,9 +1185,92 @@ def phase_ext_kernels(device, scene, stress_cfg, reps: int, sass: dict):
                 "move": cuda_ms(lambda: bc.bucket_move_cuda(state), reps),
             }
             line["bound"] = ext_bound(state, sass)
+            # what the every-tile step must move whatever is live: 16 B read
+            # and 16 B written a slot (the bound above counts live slots only)
+            line["every_slot_bytes_ms"] = 1e3 * 32 * state.capacity / HBM_BYTES_PER_S
+            line["later"] = ext_times_later(state, pv, chunks, sim.grid.move_every,
+                                            sim.params.steps_per_frame, reps, sass)
         results[label] = line
         print("ext kernels: " + json.dumps(line), flush=True)
+    print("ext geometries: " + json.dumps(ext_geometry_sweep(device)), flush=True)
     return results
+
+
+# (grid shape, lane chunks, rows a tile asked for): what each exercises in
+# the tile-scheduled kernel beyond the two scenes above
+EXT_GEOMETRIES = (
+    ((16, 32, 8), 2, 8),    # cap 8, four tiles, one sub-tile a tile
+    ((16, 32, 6), 1, 8),    # cap no multiple of 4: the pass-through's scalar path
+    ((8, 64, 12), 4, 8),    # cap a multiple of 4 and no power of two
+    ((32, 16, 64), 1, 16),  # 16-row tiles (two sub-tiles down); cap 64 narrows the
+                            # sub-tile to fit shared memory, its last column ragged
+    ((4, 4, 16), 4, 8),     # tiles of one bucket column and the grid's 4 rows
+)
+
+
+def ext_geometry_sweep(device) -> list:
+    """The tile-scheduled step in both modes on small random half-live grids
+    of other shapes than the scenes': bit-identical, two steps on one buffer
+    pair, to the classic CUDA step, itself held against the plain step."""
+    import torch
+
+    from particle_simulator_tpu_torch.engine.state import ParticleState, SimParams
+    from particle_simulator_tpu_torch.io.frame import default_metadata
+    from particle_simulator_tpu_torch.ops import bucket_cuda as bc
+    from particle_simulator_tpu_torch.physics import bucket
+
+    meta = default_metadata()
+    meta["step_dt"] = 10e-15
+    pv = SimParams.from_record(meta).vector(device)
+    lines = []
+    for seed, (shape, chunks, rows) in enumerate(EXT_GEOMETRIES):
+        rng = np.random.default_rng(seed)
+        n = int(np.prod(shape))
+        fields = (rng.integers(0, 2**32, n, dtype=np.uint32).view(np.int32),
+                  rng.integers(0, 2**32, n, dtype=np.uint32).view(np.int32),
+                  rng.normal(0, 50, n).astype(np.float32),
+                  rng.normal(0, 50, n).astype(np.float32),
+                  np.where(rng.random(n) < 0.5, 0, -1).astype(np.int32))
+        state = ParticleState(*(torch.from_numpy(a).to(device).reshape(shape) for a in fields))
+        state.ty[: shape[0] // 2, : shape[1] // 2] = -1  # a dead corner: dead tiles and buckets
+        aux = bucket.ext_step_aux(state, pv, chunks, rows)
+        classic = [bc.bucket_step_cuda(state, pv)]
+        classic.append(bc.bucket_step_cuda(classic[0], pv))
+        same_state(classic[0], bucket.bucket_step(state, pv), f"{shape} classic vs plain")
+        for compact in (False, True):
+            pair = bc.ext_pair(state)
+            for k in range(2):
+                pair = bc.bucket_step_ext_cuda(pair, aux, compact)
+                same_state(pair.cur, classic[k],
+                           f"{shape} chunks {chunks} compact={compact} step {k} vs classic")
+        lines.append({"grid": list(shape), "lane_chunks": chunks, "ty_rows": aux.ty_rows,
+                      "omax": int(aux.params[-1]), "live_tile_share": live_tile_share(aux),
+                      "live": int((state.ty >= 0).sum())})
+    return lines
+
+
+def ext_times_later(state, pv, chunks: int, move_every: int, steps: int, reps: int,
+                    sass: dict, frames: int = 4) -> dict:
+    """The three step modes on the state ``frames`` classic frames later
+    (the user scene's stretched lattice contracts, so omax grows): each ext
+    mode bit-identical to the classic CUDA step there, and their times."""
+    from particle_simulator_tpu_torch.ops import bucket_cuda as bc
+    from particle_simulator_tpu_torch.physics import bucket
+
+    for _ in range(frames):
+        state = bc.run_frame_bucket_cuda(state, pv, steps, move_every)
+    aux = bucket.ext_step_aux(state, pv, chunks, 8)
+    classic = bc.bucket_step_cuda(state, pv)
+    for compact in (False, True):
+        same_state(bc.bucket_step_ext_cuda(state, aux, compact), classic,
+                   f"user scene {frames} frames later, compact={compact}, vs the classic step")
+    pair = bc.ext_pair(state)
+    return {"frames_later": frames, "omax": int(aux.params[-1]),
+            "live_tile_share": live_tile_share(aux), "pairs_per_step": bucket_pairs(state),
+            "ms": {"classic": cuda_ms(lambda: bc.bucket_step_cuda(state, pv), reps),
+                   "ext": cuda_ms(lambda: bc.bucket_step_ext_cuda(pair, aux, False), reps),
+                   "compact": cuda_ms(lambda: bc.bucket_step_ext_cuda(pair, aux, True), reps)},
+            "bound": ext_bound(state, sass)}
 
 
 def compare_readback(got_bytes: bytes, want_bytes: bytes, held, copy) -> None:
@@ -1267,16 +1410,21 @@ def main() -> int:
     print(f"card: {name} (torch {torch.__version__}, CUDA {torch.version.cuda})", flush=True)
     print(smi, flush=True)
 
-    # 2. build, and the all-pairs kernel's SASS
+    # 2. build; the pair loops' SASS counts are information, the bounds use
+    # the frozen FORCE_LAW_COUNTS
     t0 = time.perf_counter()
     lib = build.library()
     build_s = time.perf_counter() - t0
     lib_path = build.BUILD_DIR / build.LIB_NAME
-    sass = sass_pair_counts(lib_path, "allpairs_step_kernel", lib.ps_allpairs_pairs_per_iter())
-    ptxas = [ln.strip() for ln in (build.BUILD_DIR / build.BUILD_LOG).read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
+    sass = FORCE_LAW_COUNTS
+    loops = {"allpairs_step_kernel": sass_pair_counts(
+                 lib_path, "allpairs_step_kernel", lib.ps_allpairs_pairs_per_iter()),
+             "bucket_step_tiles_kernel": sass_pair_counts(
+                 lib_path, "bucket_step_tiles_kernel", lib.ps_bucket_tiles_pairs_per_iter())}
+    ptxas = ptxas_summary((build.BUILD_DIR / build.BUILD_LOG).read_text())
     print("build: " + json.dumps({"seconds": build_s, "library": str(lib_path),
-                                  "sass_allpairs_main_loop": sass, "ptxas": ptxas}),
+                                  "force_law_counts": sass, "sass_pair_loops": loops,
+                                  "ptxas": ptxas}),
           flush=True)
 
     device = "cuda"
@@ -1292,8 +1440,9 @@ def main() -> int:
     phase_sharded_frame(device, dense_cfg, frames=3, steps=100, timed=5)
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as workdir:
         msl = phase_slice(device, "1024x1024", 16, workdir, mesh=one_card_mesh(device))
-        # the same serve on one device, then both profiled
-        phase_slice(device, "1024x1024", 16, workdir)
+        # the same serve on one device (8 frames: phase 14 serves it again
+        # with 16), then both profiled
+        phase_slice(device, "1024x1024", 8, workdir)
         for mesh in (None, one_card_mesh(device)):
             phase_slice(device, "1024x1024", 8, workdir, mesh=mesh, profile=True)
     scene = user_scene()

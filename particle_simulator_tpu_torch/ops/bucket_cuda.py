@@ -19,7 +19,9 @@ Counterpart of ``particle_simulator_tpu/ops/bucket_pallas.py``:
   (``run_frame_bucket_pallas``'s ext branch): ``bucket_step_ext_cuda`` ->
   ``csrc/bucket_step.cu``'s tile-scheduled instance, ``compact=True``
   (``_step_kernel_compact``, live tiles only) or ``compact=False``
-  (``_step_kernel`` with ``out_off=0``, every tile).
+  (``_step_kernel`` with ``out_off=0``, every tile). A block of that kernel
+  stages a sub-tile's live candidates compacted in shared memory and gives
+  its threads to the live receivers only (``csrc/bucket_stage.cuh``).
 
 Each wrapper checks dtype, shape, contiguity and device. A state on the CPU
 goes to the plain PyTorch version in ``physics/bucket.py``; a state on a
@@ -44,7 +46,9 @@ LAUNCHES = {"step": 0, "dest": 0, "place": 0,
             "step_halo": 0, "dest_halo": 0, "place_halo": 0,
             "step_ext": 0, "step_compact": 0}
 
-# blocks of one ext-layout step launch per SM of the card (ps_bucket_step_tiles)
+# blocks (of 256 threads, one sub-tile of a tile each) of one ext-layout step
+# launch per SM of the card (ps_bucket_step_tiles); 16 to 64 time alike on the
+# H100, fewer leave the tile walk too few walkers
 TILE_BLOCKS_PER_SM = 64
 
 _DTYPES = (torch.int32, torch.int32, torch.float32, torch.float32, torch.int32)

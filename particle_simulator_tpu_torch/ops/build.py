@@ -47,6 +47,10 @@ _SIGNATURES = {
     "ps_allpairs_step": [_P] * 10 + [_I, _P],
     # pairs per iteration of the all-pairs kernel's main loop
     "ps_allpairs_pairs_per_iter": [],
+    # the segment length of the all-pairs sum the library was built with
+    "ps_allpairs_segment": [],
+    # pairs per iteration of the tile-scheduled step's candidate run loop
+    "ps_bucket_tiles_pairs_per_iter": [],
 }
 
 

@@ -9,11 +9,18 @@ Tolerance: ``ty`` equal, x/y within 2 fixed-point units, vx/vy within
 rtol 1e-4, atol 1e-3, the envelope the JAX suite holds its own all-pairs
 kernels to (tests/test_pallas.py). The sums differ in order: JAX adds the
 pair terms in a tree (a row reduction), the port one j at a time (the CUDA
-kernel's order), so the last bits differ where the forces cancel.
+kernel's order within a segment of ``step.SEGMENT`` sources, then the
+segments' partials in ascending order), so the last bits differ where the
+forces cancel. The segmented sum is also held, bit for bit, against a numpy
+float32 re-computation and, on scenes of one segment, against the
+one-at-a-time sum.
 
 The CUDA kernel itself runs only on the card; ``chip_smoke.py`` holds it
 against this plain version there.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -36,7 +43,7 @@ from particle_simulator_tpu_torch.engine.state import (
     to_reference,
 )
 from particle_simulator_tpu_torch.ops import allpairs_cuda
-from particle_simulator_tpu_torch.physics import step
+from particle_simulator_tpu_torch.physics import mie, step
 
 torch.set_num_threads(2)
 
@@ -93,6 +100,90 @@ def test_allpairs_step_matches_jax(scene, reference):
         ref = allpairs_step_pallas(jstate, jp, interpret=True)
     got, _ = to_reference(step.allpairs_step(state, params.vector()), params)
     assert_envelope(got, jax.device_get(ref))
+
+
+SEGMENTED = [(scene, ref) for scene, ref in CASES if "cursor" not in scene]
+
+
+@pytest.mark.parametrize("scene, reference", SEGMENTED)
+def test_segmented_step_matches_jax(monkeypatch, scene, reference):
+    """Segments of 32 sources (4, 8 and a ragged 3 + 4/32 of them on these
+    scenes) keep the plain step inside the envelope of both JAX forms."""
+    monkeypatch.setattr(step, "SEGMENT", 32)
+    jstate, jp, state, params = compact_scene(**SCENES[scene])
+    if reference == "jnp":
+        ref = j_allpairs_step(jstate, jp)
+    else:
+        ref = allpairs_step_pallas(jstate, jp, interpret=True)
+    got, _ = to_reference(step.allpairs_step(state, params.vector()), params)
+    assert_envelope(got, jax.device_get(ref))
+
+
+def pair_term_matrices(state, pv):
+    """The (N, N) pair terms [j, i] of source j on receiver i, as
+    ``allpairs_forces`` computes them."""
+    n = state.x.shape[0]
+    scale_x, scale_y = mie.pair_scales(pv)
+    dx = (state.x[:, None] - state.x[None, :]).to(torch.float32) * scale_x
+    dy = (state.y[:, None] - state.y[None, :]).to(torch.float32) * scale_y
+    valid = (state.ty[:, None] >= 0) & ~torch.eye(n, dtype=torch.bool)
+    return mie.pair_terms(dx, dy, valid, mie.mie_log_coeffs(pv))
+
+
+def numpy_segmented_sum(terms, start, seg):
+    """The sum's definition, in numpy float32: accumulator 0 from ``start``,
+    the others from +0, ascending j within a segment, then ascending k."""
+    terms, start = terms.numpy(), start.numpy()
+    assert terms.dtype == np.float32 and start.dtype == np.float32
+    partials = []
+    for k0 in range(0, len(terms), seg):
+        acc = start.copy() if k0 == 0 else np.zeros_like(start)
+        for j in range(k0, min(len(terms), k0 + seg)):
+            acc = acc + terms[j]
+        partials.append(acc)
+    total = partials[0]
+    for acc in partials[1:]:
+        total = total + acc
+    return total
+
+
+@pytest.mark.parametrize("seg", [32, 48])
+@pytest.mark.parametrize("scene", ["cap128_cursor", "cap256_multi_tile", "cap100_ragged"])
+def test_segmented_sum_equals_numpy_recomputation(monkeypatch, scene, seg):
+    monkeypatch.setattr(step, "SEGMENT", seg)
+    _, _, state, params = compact_scene(**SCENES[scene])
+    pv = params.vector()
+    assert state.capacity > seg and (seg == 32 or state.capacity % seg)  # 48: ragged
+    ext = step.external_forces(state, pv)
+    for got, terms, start in zip(step.allpairs_forces(state, pv),
+                                 pair_term_matrices(state, pv), ext):
+        want = numpy_segmented_sum(terms, start, seg)
+        np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("scene", ["cap128_cursor", "cap100_ragged"])
+def test_one_segment_is_the_one_at_a_time_sum(scene):
+    """With N <= SEGMENT the sum adds j = 0, 1, ..., N-1 one at a time onto
+    the cursor + wall force: the sum the step had before it was segmented."""
+    _, _, state, params = compact_scene(**SCENES[scene])
+    pv = params.vector()
+    assert state.capacity <= step.SEGMENT
+    ext = step.external_forces(state, pv)
+    for got, terms, start in zip(step.allpairs_forces(state, pv),
+                                 pair_term_matrices(state, pv), ext):
+        acc = start.clone()
+        for j in range(state.capacity):
+            acc = acc + terms[j]
+        assert torch.equal(got, acc)
+
+
+def test_segment_length_matches_the_cuda_source():
+    """One definition of the sum: ``step.SEGMENT`` is the kernel's
+    ``AP_SEGMENT``, a plain constant of the source."""
+    source = Path(allpairs_cuda.__file__).parent / "csrc" / "allpairs_step.cu"
+    found = re.findall(r"constexpr int AP_SEGMENT = (\d+);", source.read_text())
+    assert found == [str(step.SEGMENT)]
+    assert 128 <= step.SEGMENT <= 512
 
 
 def test_tombstones_are_inert():

@@ -167,3 +167,45 @@ def test_readback_check_compares_ticket_bytes_and_held_state(monkeypatch):
     copy.vy[0, 0, 0] += 1.0
     with pytest.raises(AssertionError, match="held state's vy"):
         chip_smoke.compare_readback(frame, frame, state, copy)
+
+
+def test_frozen_force_law_counts_reproduce_the_recorded_bounds():
+    """The bounds come from ``FORCE_LAW_COUNTS``, not from the SASS of the
+    kernel under test: they give the operation bounds recorded for the
+    kernels these counts were read from (16,384 all-pairs slots: 0.4086 ms;
+    the 1M user scene's 38,708,704 live pairs: 0.0589 ms)."""
+    counts = chip_smoke.FORCE_LAW_COUNTS
+    assert counts == {"fp32_per_pair": 51.0, "mufu_per_pair": 2.0}
+    assert chip_smoke.ops_bound_ms(16384 * 16383) == chip_smoke.ops_bound_ms(16384 * 16383, counts)
+    assert round(chip_smoke.ops_bound_ms(16384 * 16383), 4) == 0.4086
+    assert round(chip_smoke.ops_bound_ms(38708704), 4) == 0.0589
+
+
+def test_ptxas_summary_names_each_kernel():
+    log = """$ nvcc -c bucket_step.cu
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__9040dbc3_14_bucket_step_cu_13312ab324bucket_step_tiles_kernelILb1EEEvPKjS2_PKfS4_PKiS4_S6_S6_S6_PjS7_PfS8_iiiiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN47_GLOBAL__N__9040dbc3_14_bucket_step_cu_13312ab324bucket_step_tiles_kernelILb1EEEvPKjS2_PKfS4_PKiS4_S6_S6_S6_PjS7_PfS8_iiiiiiii
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 80 bytes smem
+ptxas info    : Compiling entry function '_ZN49_GLOBAL__N__2a10dead_16_allpairs_step_cu_ad9a7de720allpairs_step_kernelEPKjS1_PKfS3_PKiS3_PjS6_PfS7_i' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 63 registers, used 1 barriers, 27464 bytes smem
+"""
+    assert chip_smoke.ptxas_summary(log) == {
+        "bucket_step_tiles_kernel<1>": {"spill_stores": 8, "spill_loads": 4, "registers": 64,
+                                        "smem": 80},
+        "allpairs_step_kernel": {"spill_stores": 0, "spill_loads": 0, "registers": 63,
+                                 "smem": 27464},
+    }
+
+
+def test_ext_geometry_sweep_runs_through_the_plain_versions():
+    """The card-side sweep of tile geometries, rehearsed on CPU tensors (the
+    wrappers run the plain versions): every case bit-identical, and between
+    them a cap that is no multiple of 4, 16-row and 4-row tiles and dead
+    tiles."""
+    lines = chip_smoke.ext_geometry_sweep("cpu")
+    assert [tuple(ln["grid"]) for ln in lines] == [g for g, _, _ in chip_smoke.EXT_GEOMETRIES]
+    assert {ln["ty_rows"] for ln in lines} == {4, 8, 16}
+    assert any(ln["grid"][2] % 4 for ln in lines)
+    assert any(ln["live_tile_share"] < 1 for ln in lines) and all(ln["live"] for ln in lines)

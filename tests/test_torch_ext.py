@@ -14,7 +14,10 @@ Contract:
 - against JAX's ext frame (10 steps, rebucket every 4): the same envelope.
 
 The CUDA kernel runs only on the card; ``chip_smoke.py`` phases 12-14 hold
-it against these plain versions there.
+it against these plain versions there. What its design relies on is held
+here: a model of "compact each bucket row's live candidates, then three
+contiguous runs a receiver" (``ops/csrc/bucket_stage.cuh``) gives
+``bucket_step``'s result bit for bit.
 """
 
 import numpy as np
@@ -42,8 +45,12 @@ from particle_simulator_tpu_torch.engine import simulator
 from particle_simulator_tpu_torch.engine.simulator import Simulator
 from particle_simulator_tpu_torch.engine.state import ParticleState, from_reference, to_reference
 from particle_simulator_tpu_torch.io.frame import Frame as TFrame
+from particle_simulator_tpu_torch.engine.state import SimParams, state_from_numpy
 from particle_simulator_tpu_torch.ops import bucket_cuda
-from particle_simulator_tpu_torch.physics import bucket
+from particle_simulator_tpu_torch.physics import bucket, mie
+from particle_simulator_tpu_torch.physics.step import external_forces
+
+import chip_smoke
 
 torch.set_num_threads(2)
 
@@ -338,3 +345,84 @@ def test_ext_wrapper_validates_and_keeps_held_buffers():
         bucket_cuda.bucket_step_ext_cuda(state.to("meta"), aux, True)
     with pytest.raises(ValueError):
         bucket.ext_step_aux(state, pv, 3)
+
+
+def staged_runs_step(state: ParticleState, pv: torch.Tensor) -> ParticleState:
+    """The tile-scheduled kernel's candidate walk, modelled on the whole
+    grid: every bucket row's live slots compacted in (bucket, slot) order
+    with each bucket's start offset; a live receiver in bucket (r, b) adds,
+    one at a time onto its cursor + wall force, the candidates of three
+    contiguous runs (rows r-1, r, r+1: from the start of bucket b-1 to the
+    end of bucket b+1, clamped at the box edge), skipping itself by its
+    position in the middle run; then the leapfrog."""
+    by, bx, cap = state.ty.shape
+    live = state.ty.numpy() >= 0
+    start = np.zeros((by, bx + 1), np.int64)
+    start[:, 1:] = np.cumsum(live.sum(-1), axis=1)
+    compacted = [np.flatnonzero(live[r].reshape(-1)) + r * bx * cap for r in range(by)]
+    receivers, runs = [], []
+    for r, b, s in np.argwhere(live):
+        pos = start[r, b] + live[r, b, :s].sum()
+        cands = []
+        for rr in (r - 1, r, r + 1):
+            if not 0 <= rr < by:
+                continue
+            lo, hi = start[rr, max(b - 1, 0)], start[rr, min(b + 2, bx)]
+            run = compacted[rr][lo:hi]
+            if rr == r:
+                assert run[pos - lo] == (r * bx + b) * cap + s
+                run = np.delete(run, pos - lo)
+            cands.append(run)
+        receivers.append((r * bx + b) * cap + s)
+        runs.append(np.concatenate(cands))
+    n, longest = len(receivers), max((len(c) for c in runs), default=0)
+    idx = np.zeros((n, longest), np.int64)
+    for k, c in enumerate(runs):
+        idx[k, :len(c)] = c
+    idx = torch.from_numpy(idx)
+    count = torch.tensor([len(c) for c in runs], dtype=torch.int64)
+    recv = torch.tensor(receivers, dtype=torch.int64)
+
+    x, y = state.x.reshape(-1), state.y.reshape(-1)
+    scale_x, scale_y = mie.pair_scales(pv)
+    coeffs = mie.mie_log_coeffs(pv)
+    ext_x, ext_y = external_forces(state, pv)
+    fx, fy = ext_x.reshape(-1)[recv], ext_y.reshape(-1)[recv]
+    for k in range(longest):
+        on = k < count
+        dx = mie.wrap_dist(x[recv], x[idx[:, k]], scale_x)
+        dy = mie.wrap_dist(y[recv], y[idx[:, k]], scale_y)
+        tx, ty = mie.pair_terms(dx, dy, on, coeffs)
+        fx = torch.where(on, fx + tx, fx)
+        fy = torch.where(on, fy + ty, fy)
+    full_x = torch.zeros(state.capacity).index_put_((recv,), fx).reshape(state.x.shape)
+    full_y = torch.zeros(state.capacity).index_put_((recv,), fy).reshape(state.x.shape)
+    out = mie.leapfrog_apply(*state, full_x, full_y, pv)
+    return ParticleState(*out, state.ty)
+
+
+def stress_state():
+    cfg = bucket.GridConfig(4, 4, 16)
+    parts, meta = chip_smoke.stress_scene(cfg)
+    state = state_from_numpy(parts, cfg.capacity).reshape(cfg.grid_shape)
+    return state, SimParams.from_record(meta).vector()
+
+
+def quarter_state():
+    state, params = from_reference(random_fields(1, True), step_meta())
+    return state, params.vector()
+
+
+@pytest.mark.parametrize("case", ["stress", "quarter"])
+def test_compacted_candidate_runs_give_the_classic_step(case):
+    """The ordering argument of the tile-scheduled kernel: compacted rows and
+    three runs a receiver reproduce ``bucket_step`` on every field and slot,
+    with the box edges, a full bucket (stress) and empty buckets (quarter)."""
+    state, pv = stress_state() if case == "stress" else quarter_state()
+    live = state.ty >= 0
+    if case == "stress":
+        assert live.all(-1).any(), "the stress scene has a full bucket"
+        assert live[0].any() and live[-1].any() and live[:, 0].any() and live[:, -1].any()
+    else:
+        assert (~live.any(-1)).any() and live[0, 0].any()
+    assert_same(staged_runs_step(state, pv), bucket.bucket_step(state, pv), case)
