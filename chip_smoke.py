@@ -10,16 +10,21 @@ exits non-zero without printing a result):
 
 1. card: the device name and ``nvidia-smi`` name/power limit;
 2. build: the CUDA kernels compiled from ``ops/csrc`` with nvcc, one
-   process per source; the pair loops of the all-pairs and the tile-scheduled
-   kernels counted in their SASS (``cuobjdump -sass``), as information: the
-   arithmetic bounds use the frozen per-pair counts of the force law
-   (``FORCE_LAW_COUNTS``), so they do not move with a kernel's code;
+   process per source; the pair loops of the all-pairs, the tile-scheduled
+   and the classic step kernels counted in their SASS (``cuobjdump -sass``)
+   and every kernel's ``ptxas`` figures (registers, spills, static shared
+   memory), as information: the arithmetic bounds use the frozen per-pair
+   counts of the force law (``FORCE_LAW_COUNTS``), so they do not move with
+   a kernel's code;
 3. kernels: each bucket kernel against its plain PyTorch version on the
-   same inputs on the card (step: ``ty`` equal, x/y within 8 fixed-point
-   units, live vx/vy within rtol 1e-4, atol 1e-6; dest and place: equal), on
-   the dense 512x256x8 scene (1,036,320 particles) and a 16x16x16 scene with
-   the cursor, bucket crossers, far drifters and overflow; kernel, plain and
-   library-call times at the dense scene;
+   same inputs on the card (step, dest and place: every field and slot
+   equal), on the dense 512x256x8 scene (1,036,320 particles) and a 16x16x16
+   scene with the cursor, bucket crossers, far drifters and overflow; kernel,
+   plain and library-call times at the dense scene; then the classic and
+   halo step and dest on small random grids of other shapes
+   (``STEP_DEST_GEOMETRIES``: caps 6, 8, 12, 64, sides no sub-tile divides,
+   stacks of 1 to 4 shards, moves that drop particles) against their plain
+   versions, bit for bit;
 4. slice: the unchanged headless editor (a subprocess) sends a 1024x1024
    lattice (1,048,576 particles) over TCP and the port's ``serve`` ships 6
    frames back through the bucket kernels; every frame must be finite and
@@ -69,7 +74,10 @@ exits non-zero without printing a result):
     live-tile share; the step times again on the state four classic frames
     later (omax 8); then both modes on small random grids of other shapes
     (``EXT_GEOMETRIES``: caps 6, 8, 12, 64, 16-row and 4-row tiles,
-    one-bucket tiles) against the classic CUDA step;
+    one-bucket tiles) against the classic CUDA step; the classic step and
+    the dest against their plain versions on both scenes, the dest's time
+    on the user scene, and the classic step's, the dest's and both tile
+    modes' times on the editor's 1024x1024 lattice (a 512x512x16 grid);
 13. ext frame: three 100-step frames of the user scene through
     ``run_frame_bucket_cuda(ext_io=True)`` in both modes, bit-identical to
     the classic frame on every slot; the frame time of each runner (5 in
@@ -455,8 +463,9 @@ def phase_kernels(device, dense_cfg, stress_cfg, reps: int, sass: dict):
         state = state_from_numpy(parts, cfg.capacity, device).reshape(cfg.grid_shape)
         pv = SimParams.from_record(meta).vector(device)
 
-        step_err = check_step(bc.bucket_step_cuda(state, pv),
-                              bucket.bucket_step(state, pv), label)
+        stepped, stepped_ref = bc.bucket_step_cuda(state, pv), bucket.bucket_step(state, pv)
+        step_err = check_step(stepped, stepped_ref, label)
+        same_state(stepped, stepped_ref, f"{label}: the step against its plain version")
         dest = bc.move_dest_cuda(state)
         dest_ref = bucket.move_dest_direct(state)
         if not torch.equal(dest, dest_ref):
@@ -470,7 +479,8 @@ def phase_kernels(device, dense_cfg, stress_cfg, reps: int, sass: dict):
         kept = int((dest_ref >= 0).sum())
         live = int((state.ty >= 0).sum())
         line = {"scene": label, "grid": list(cfg.grid_shape), "live": live,
-                "kept_by_move": kept, "step_max_abs_err_v": step_err}
+                "kept_by_move": kept, "step_max_abs_err_v": step_err,
+                "step_bit_identical": True}
         if label == "stress" and not (kept < live):
             raise AssertionError("stress scene: the move dropped nothing")
         if label == "dense":
@@ -502,7 +512,120 @@ def phase_kernels(device, dense_cfg, stress_cfg, reps: int, sass: dict):
             }
         results[label] = line
         print("kernels: " + json.dumps(line), flush=True)
+    print("step and dest geometries: " + json.dumps(step_dest_geometry_sweep(device)),
+          flush=True)
     return results
+
+
+# Grids of other shapes than the scenes': a 3-tuple is one (gy, gx, cap) grid
+# for the classic step and dest (sides powers of two: a bucket is the top
+# bits of a coordinate), a 4-tuple a stack of halo-padded shards (n, LY+2,
+# LX+2, cap) for their halo modes, whose sides are free.
+STEP_DEST_GEOMETRIES = (
+    (4, 4, 6),        # smaller than a sub-tile; cap no multiple of 4: scalar copies
+    (2, 32, 8),       # two sub-tiles across, two rows
+    (32, 4, 12),      # four sub-tiles down; cap a multiple of 4, no power of two
+    (16, 16, 64),     # cap 64 narrows the sub-tile to fit shared memory: a cut last column
+    (16, 64, 16),     # 2 x 4 whole sub-tiles
+    (1, 5, 7, 6),     # one shard, 3 x 5 interior buckets
+    (3, 19, 33, 8),   # 17 x 31 interior: 3 x 2 sub-tiles, the last row and column cut
+    (2, 3, 3, 12),    # one interior bucket: the ring strips are all but it
+    (4, 10, 18, 64),  # four shards; the narrowed sub-tile
+    (2, 11, 35, 16),  # 9 x 33 interior: a last row of 1 and a last column of 1
+)
+
+
+def drift_grid(shape, seed: int, density: float = 0.8, drift: float = 1.3):
+    """A random (gy, gx, cap) grid or (n, LY+2, LX+2, cap) stack of padded
+    shards on the CPU for the sweep: every bucket filled to a random slot
+    prefix (binomial, ``density`` of cap, so some buckets are full and
+    targets overflow), a fifth of the filled slots tombstoned again, one
+    corner of every grid dead, each particle placed up to ``drift`` bucket
+    widths from its bucket (crossers, and far drifters the move drops),
+    thermal velocities. The shards lie at random offsets of a 64 x 64 global
+    grid, the first at (0, 0), so its ring is outside the box. Returns
+    (ParticleState, bx_log2, by_log2, offsets or None)."""
+    import torch
+
+    from particle_simulator_tpu_torch.engine.state import ParticleState
+
+    rng = np.random.default_rng(seed)
+    *lead, gy, gx, cap = shape
+    if lead:
+        bx_log2 = by_log2 = 6
+        n = lead[0]
+        offsets = np.stack([rng.integers(0, 64 - (gy - 2) + 1, n),
+                            rng.integers(0, 64 - (gx - 2) + 1, n)], 1).astype(np.int32)
+        offsets[0] = 0
+        rows = offsets[:, 0, None, None, None] + np.arange(-1, gy - 1)[None, :, None, None]
+        cols = offsets[:, 1, None, None, None] + np.arange(-1, gx - 1)[None, None, :, None]
+    else:
+        by_log2, bx_log2 = gy.bit_length() - 1, gx.bit_length() - 1
+        offsets = None
+        rows, cols = np.arange(gy)[:, None, None], np.arange(gx)[None, :, None]
+    occ = np.arange(cap) < rng.binomial(cap, density, shape[:-1])[..., None]
+    occ &= rng.random(shape) > 0.2
+    occ[..., : gy // 2, : gx // 2, :] = False
+
+    def coord(index, log2):
+        pos = (index + rng.uniform(-drift, 1 + drift, shape)) * 2.0 ** (32 - log2)
+        return (np.floor(pos).astype(np.int64) % 2**32).astype(np.uint32).view(np.int32)
+
+    fields = (coord(cols, bx_log2), coord(rows, by_log2),
+              rng.normal(0, 50, shape).astype(np.float32),
+              rng.normal(0, 50, shape).astype(np.float32),
+              np.where(occ, 0, -1).astype(np.int32))
+    state = ParticleState(*(torch.from_numpy(np.ascontiguousarray(a)) for a in fields))
+    return state, bx_log2, by_log2, None if offsets is None else torch.from_numpy(offsets)
+
+
+def step_dest_geometry_sweep(device) -> list:
+    """The classic and halo step and dest on ``STEP_DEST_GEOMETRIES``: two
+    steps and the dest of each, bit for bit against their plain versions;
+    over the sweep the move must drop live particles and pull ring
+    particles in."""
+    import torch
+
+    from particle_simulator_tpu_torch.engine.state import SimParams
+    from particle_simulator_tpu_torch.io.frame import default_metadata
+    from particle_simulator_tpu_torch.ops import bucket_cuda as bc
+    from particle_simulator_tpu_torch.physics import bucket
+
+    meta = default_metadata()
+    meta["step_dt"] = 10e-15
+    pv = SimParams.from_record(meta).vector(device)
+    lines = []
+    for seed, shape in enumerate(STEP_DEST_GEOMETRIES):
+        state, bx_log2, by_log2, offsets = drift_grid(shape, seed)
+        state = state.to(device)
+        halo = offsets is not None
+        if halo:
+            offsets = offsets.to(device)
+            step, step_ref = bc.bucket_step_halo_cuda, bucket.bucket_step_halo
+            dest = bc.move_dest_halo_cuda(state, bx_log2, by_log2, offsets)
+            dest_ref = bucket.move_dest_direct_halo(state, bx_log2, by_log2, offsets)
+            receivers = bucket.interior(state).ty >= 0
+            kept = dest_ref[..., 1:-1, 1:-1, :] >= 0
+        else:
+            step, step_ref = bc.bucket_step_cuda, bucket.bucket_step
+            dest, dest_ref = bc.move_dest_cuda(state), bucket.move_dest_direct(state)
+            receivers, kept = state.ty >= 0, dest_ref >= 0
+        got, ref = state, state
+        for k in range(2):
+            got, ref = step(got, pv), step_ref(ref, pv)
+            same_state(got, ref, f"{shape} step {k} against its plain version")
+        if not torch.equal(dest, dest_ref):
+            raise AssertionError(f"{shape}: dest ids differ at "
+                                 f"{int((dest != dest_ref).sum())} slots")
+        ring_kept = int((dest_ref >= 0).sum()) - int(kept.sum())
+        lines.append({"shape": list(shape), "halo": halo, "receivers": int(receivers.sum()),
+                      "dropped_by_move": int((receivers & ~kept).sum()),
+                      "pulled_in_from_ring": ring_kept})
+    if not all(any(ln["dropped_by_move"] for ln in lines if ln["halo"] == h) for h in (0, 1)):
+        raise AssertionError(f"the sweep's moves dropped nothing: {lines}")
+    if not any(ln["pulled_in_from_ring"] for ln in lines):
+        raise AssertionError(f"the sweep pulled no ring particle in: {lines}")
+    return lines
 
 
 def place_library_call(state, destid, reps: int, timer=cuda_ms, out_grid=None):
@@ -1140,6 +1263,8 @@ def phase_ext_kernels(device, scene, stress_cfg, reps: int, sass: dict):
     """Phase 12: the tile-scheduled step (both modes) against its plain
     versions and the classic CUDA step, two steps on one buffer pair, on the
     1M user scene and the stress scene; times and bound on the user scene."""
+    import torch
+
     from particle_simulator_tpu_torch.engine.simulator import Simulator
     from particle_simulator_tpu_torch.engine.state import SimParams, state_from_numpy
     from particle_simulator_tpu_torch.ops import bucket_cuda as bc
@@ -1156,7 +1281,8 @@ def phase_ext_kernels(device, scene, stress_cfg, reps: int, sass: dict):
         aux = bucket.ext_step_aux(state, pv, chunks, 8)
         classic = [bc.bucket_step_cuda(state, pv)]
         classic.append(bc.bucket_step_cuda(classic[0], pv))
-        err = 0.0
+        err = same_state(classic[0], bucket.bucket_step(state, pv),
+                         f"{label}: the classic step against its plain version")
         for compact in (False, True):
             name = "compact" if compact else "ext"
             first = bc.bucket_step_ext_cuda(bc.ext_pair(state), aux, compact)
@@ -1183,8 +1309,12 @@ def phase_ext_kernels(device, scene, stress_cfg, reps: int, sass: dict):
                 "aux": cuda_ms(lambda: bucket.ext_step_aux(state, pv, chunks, 8), reps),
                 "pair": cuda_ms(lambda: bc.ext_pair(state), reps),
                 "move": cuda_ms(lambda: bc.bucket_move_cuda(state), reps),
+                "dest": cuda_ms(lambda: bc.move_dest_cuda(state), reps),
             }
+            if not torch.equal(bc.move_dest_cuda(state), bucket.move_dest_direct(state)):
+                raise AssertionError("user scene: dest ids differ from the plain version's")
             line["bound"] = ext_bound(state, sass)
+            line["dest_bound"] = bound(16 * state.capacity)
             # what the every-tile step must move whatever is live: 16 B read
             # and 16 B written a slot (the bound above counts live slots only)
             line["every_slot_bytes_ms"] = 1e3 * 32 * state.capacity / HBM_BYTES_PER_S
@@ -1193,7 +1323,48 @@ def phase_ext_kernels(device, scene, stress_cfg, reps: int, sass: dict):
         results[label] = line
         print("ext kernels: " + json.dumps(line), flush=True)
     print("ext geometries: " + json.dumps(ext_geometry_sweep(device)), flush=True)
+    print("editor lattice kernels: " + json.dumps(lattice_kernel_times(device, reps, sass)),
+          flush=True)
     return results
+
+
+def editor_lattice():
+    """The lattice the headless editor sends for ``--lattice 1024x1024
+    --distance-factor 1.1 --step-dt 1e-14``: 1,048,576 particles spanning
+    0.6 of the box's side; ``_grid_for`` puts it on a 512 x 512 x 16 grid."""
+    from particle_simulator_tpu_torch.scenes.library import _scene
+
+    return _scene(1024, 1024, distance_factor=1.1, speed=0.0, box_fill=0.6, dt=1e-14)
+
+
+def lattice_kernel_times(device, reps: int, sass: dict) -> dict:
+    """The classic step and the dest on the editor lattice's grid, each
+    against its plain version bit for bit, then timed, with the two
+    tile-scheduled modes' times beside them (the serving slices of phases
+    4, 11 and 14 run this state)."""
+    import torch
+
+    from particle_simulator_tpu_torch.engine.simulator import Simulator
+    from particle_simulator_tpu_torch.ops import bucket_cuda as bc
+    from particle_simulator_tpu_torch.physics import bucket
+
+    sim = Simulator(device=device)
+    sim.load_frame(editor_lattice())
+    state, pv, chunks = sim.state, sim._pvec, sim._lane_chunks
+    same_state(bc.bucket_step_cuda(state, pv), bucket.bucket_step(state, pv),
+               "editor lattice: the classic step against its plain version")
+    if not torch.equal(bc.move_dest_cuda(state), bucket.move_dest_direct(state)):
+        raise AssertionError("editor lattice: dest ids differ from the plain version's")
+    aux = bucket.ext_step_aux(state, pv, chunks, 8)
+    pair = bc.ext_pair(state)
+    return {"grid": list(state.x.shape), "live": int((state.ty >= 0).sum()),
+            "lane_chunks": chunks, "omax": int(aux.params[-1]),
+            "live_tile_share": live_tile_share(aux), "pairs_per_step": bucket_pairs(state),
+            "ms": {"classic": cuda_ms(lambda: bc.bucket_step_cuda(state, pv), reps),
+                   "ext": cuda_ms(lambda: bc.bucket_step_ext_cuda(pair, aux, False), reps),
+                   "compact": cuda_ms(lambda: bc.bucket_step_ext_cuda(pair, aux, True), reps),
+                   "dest": cuda_ms(lambda: bc.move_dest_cuda(state), reps)},
+            "bound": ext_bound(state, sass), "dest_bound": bound(16 * state.capacity)}
 
 
 # (grid shape, lane chunks, rows a tile asked for): what each exercises in
@@ -1420,7 +1591,10 @@ def main() -> int:
     loops = {"allpairs_step_kernel": sass_pair_counts(
                  lib_path, "allpairs_step_kernel", lib.ps_allpairs_pairs_per_iter()),
              "bucket_step_tiles_kernel": sass_pair_counts(
-                 lib_path, "bucket_step_tiles_kernel", lib.ps_bucket_tiles_pairs_per_iter())}
+                 lib_path, "bucket_step_tiles_kernel", lib.ps_bucket_tiles_pairs_per_iter()),
+             # the classic and halo step run the same staged candidate loop
+             "bucket_step_kernel": sass_pair_counts(
+                 lib_path, "bucket_step_kernel", lib.ps_bucket_tiles_pairs_per_iter())}
     ptxas = ptxas_summary((build.BUILD_DIR / build.BUILD_LOG).read_text())
     print("build: " + json.dumps({"seconds": build_s, "library": str(lib_path),
                                   "force_law_counts": sass, "sass_pair_loops": loops,

@@ -19,9 +19,14 @@ Counterpart of ``particle_simulator_tpu/ops/bucket_pallas.py``:
   (``run_frame_bucket_pallas``'s ext branch): ``bucket_step_ext_cuda`` ->
   ``csrc/bucket_step.cu``'s tile-scheduled instance, ``compact=True``
   (``_step_kernel_compact``, live tiles only) or ``compact=False``
-  (``_step_kernel`` with ``out_off=0``, every tile). A block of that kernel
-  stages a sub-tile's live candidates compacted in shared memory and gives
-  its threads to the live receivers only (``csrc/bucket_stage.cuh``).
+  (``_step_kernel`` with ``out_off=0``, every tile).
+
+Every step kernel is the same block-level design (``csrc/bucket_stage.cuh``):
+a block stages a sub-tile's live candidates compacted in shared memory and
+gives its threads to the live receivers only; the dest kernel stages a
+sub-tile plus one ring too and adds each target bucket's nine source counts
+once. Both keep the plain versions' orders, so they agree with them to the
+bit.
 
 Each wrapper checks dtype, shape, contiguity and device. A state on the CPU
 goes to the plain PyTorch version in ``physics/bucket.py``; a state on a

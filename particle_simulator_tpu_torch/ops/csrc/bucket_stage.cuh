@@ -1,7 +1,8 @@
 // Staged, compacted candidates for a bucket-grid step: device functions a
 // block calls to step the live receivers of a rectangle of buckets. Used by
-// bucket_step.cu's tile-scheduled kernel; they take the grid's geometry, so
-// the classic and halo steps can adopt them.
+// every kernel of bucket_step.cu: they take the grid's geometry, so the
+// classic step (a whole grid), the halo step (the interior of a stack of
+// padded shards) and the tile-scheduled step share them.
 //
 // A region is a rectangle of buckets plus one ring of buckets around it.
 // stage_region() reads ty (then x, y of the live slots) of the region's
@@ -182,6 +183,25 @@ static __device__ __forceinline__ void staged_pair_forces(const StepScalars& sc,
   add_run<false>(sc, sm.cand, st[-g.cols - 1], st[-g.cols + 2], 0, xi, yi, fx, fy);
   add_run<true>(sc, sm.cand, st[-1], st[2], rc.pos, xi, yi, fx, fy);
   add_run<false>(sc, sm.cand, st[g.cols - 1], st[g.cols + 2], 0, xi, yi, fx, fy);
+}
+
+// step the staged region's n_recv receivers (stage_region()'s count): a
+// thread takes a live receiver, adds its 3x3 neighbourhood's pair forces
+// onto its cursor and wall force, and leapfrogs into the outputs
+static __device__ __forceinline__ void step_staged_receivers(
+    const StepScalars& sc, const StageGeom& g, const StageBuffers& sm, int n_recv,
+    const float* __restrict__ vx, const float* __restrict__ vy, uint32_t* __restrict__ ox,
+    uint32_t* __restrict__ oy, float* __restrict__ ovx, float* __restrict__ ovy) {
+  for (int r = threadIdx.x; r < n_recv; r += blockDim.x) {
+    const Receiver rc = staged_receiver(r, g, sm);
+    const uint2 self = sm.cand[rc.pos];
+    const float vxi = vx[rc.slot], vyi = vy[rc.slot];
+    float fx, fy;
+    external_force(sc, self.x, self.y, fx, fy);
+    staged_pair_forces(sc, g, sm, rc, self.x, self.y, fx, fy);
+    leapfrog(sc, self.x, self.y, vxi, vyi, fx, fy, ox[rc.slot], oy[rc.slot], ovx[rc.slot],
+             ovy[rc.slot]);
+  }
 }
 
 // Pass-through of a rectangle of `rows` grid rows x `row_slots` contiguous

@@ -21,100 +21,142 @@
 // lu = log(d^2/sigma^2); then v += F/m*dt and x += round(v*dt/box*2^32)
 // as a wrapping u32 add. Dead slots pass through; ty is not written.
 //
-// What bounds it on the H100: arithmetic, not bytes. Each live slot
-// evaluates ~9*CAP candidates, each one logf and two expf (full precision:
-// the library's polynomial forms, not the SFU approximations) plus ~15 f32
-// multiplies and adds, against 20 bytes of its own state. At 1M particles and CAP 8 that is
-// ~75M pair evaluations per step, so the FP32/SFU pipes set the time.
+// What bounds it on the H100: the pair math (operations), and how many
+// lanes do it. Each live slot evaluates its live 3x3-neighbourhood
+// candidates, each one logf and two expf (full precision: the library's
+// polynomial forms, not the SFU approximations) plus ~15 f32 multiplies and
+// adds, against 20 bytes of its own state: ~75M pair evaluations a step at
+// 1M particles and CAP 8. On a sparse cap-16 grid (a scene drawn in part of
+// its box: a few live slots in an occupied bucket, most buckets empty) a
+// thread per slot leaves most lanes of a live warp on tombstones while one
+// walks 9 x CAP candidate slots behind a 4-byte load and a branch each, and
+// the dead slots' 32 bytes of pass-through become the larger part of the
+// traffic.
 //
-// What the design does about it: one thread per receiver slot, a fixed
-// candidate order (dy outer, dx inner, slots ascending) and a per-thread
-// f32 accumulator, so there are no float atomics and the result is the same
-// on every run. Candidates are read through the read-only cache; the threads
-// of one warp cover a few neighbouring buckets, so their candidate reads hit
-// the same lines. Tombstoned candidates and dead receivers skip all math.
+// What the design does about it (bucket_stage.cuh, shared with the
+// tile-scheduled kernel below):
+// - a block owns sub-tiles of at most TILE_SUB_ROWS x TILE_SUB_COLS receiver
+//   buckets of one grid of the stack (the last sub-tile of a row or column
+//   is cut, so the grid's sides need no multiple of anything). It stages the
+//   sub-tile plus one ring of buckets and compacts the live candidates into
+//   shared memory in (row, bucket, slot) order with each bucket's start;
+// - threads take receivers from the staged interior's live slots only, so
+//   every lane of every warp but the last holds a live particle, and a
+//   receiver's candidates are three contiguous runs of shared memory read
+//   with no ty test: the fixed candidate order (dy outer, dx inner, slots
+//   ascending) with the tombstones left out, one f32 accumulator a thread,
+//   explicit round-to-nearest operations. No float atomics, no shuffles
+//   across receivers, and the same result on every run and as the plain
+//   version to the bit (a tombstone adds nothing to that sum);
+// - pass-through is a copy of its own, 16 bytes a thread where CAP allows:
+//   the sub-tile's dead slots (all of them without reading ty again when the
+//   stage found no receiver, none when it found every slot live), and in
+//   halo mode the ring strips next to the sub-tiles on the interior's edge,
+//   whole, so every slot of the output is written exactly once;
+// - buckets past the box edge stage as empty (no periodic wrap); in halo
+//   mode the staged ring is the padded shard's own ring, always in bounds.
 // The per-dispatch scalars (log-domain pair constants, wall constant) are
 // computed once per block by one thread, from the params tensor on the
 // device, so a metadata edit changes a tensor and never the launch. The
 // Pallas kernel's lane rolls, lane-validity table, lane chunking and
 // occupancy pass skips exist for the TPU's vector unit and are not carried
-// over. The tile-scheduled kernel below stages and compacts the
-// neighbourhood in shared memory (bucket_stage.cuh); this kernel does not yet.
-// The force law itself (cursor, wall, pair term, leapfrog) is shared with
-// the all-pairs kernel in ps_common.cuh.
+// over. The force law itself (cursor, wall, pair term, leapfrog) is shared
+// with the all-pairs kernel in ps_common.cuh. Limits: CAP <= 0xffff and a
+// staged 3 x 3 buckets must fit 200 KB of shared memory (CAP <= 1896).
+#include <initializer_list>
+
 #include "bucket_stage.cuh"
 
 namespace {
 
-// One thread per slot of n_grids stacked (gy, gx, cap) grids (blockIdx.y
-// = the grid). Without HALO every live slot steps
-// and candidates outside the grid (the box edge) are skipped; with HALO
-// only the live interior slots step, the ring passes through, and every
-// candidate is in bounds. A template parameter, so the single-device step
-// carries none of the halo mode's checks.
+constexpr int TILE_THREADS = 256;  // at least one thread per staged bucket
+constexpr int TILE_SUB_ROWS = 8;   // a sub-tile: at most 8 rows x 16 buckets,
+constexpr int TILE_SUB_COLS = 16;  // staged as 10 x 18 buckets with its ring
+
+// n_grids stacked (gy, gx, cap) grids, cut into sub-tiles of sub_r x sub_b
+// receiver buckets (the last of a row or column cut); a block takes the
+// sub-tiles blockIdx.x, + gridDim.x, ... of all grids (the launch gives it
+// one). Without HALO every live slot of a grid is a receiver and
+// candidates past the grid's edge (the box edge) do not exist; with HALO
+// the receivers are the live interior slots (rows 1..gy-2, columns
+// 1..gx-2) and the ring supplies candidates and passes through whole. A
+// template parameter, so the single-device step carries none of the halo
+// mode's strips.
 template <bool HALO>
-__global__ void bucket_step_kernel(
+__global__ void __launch_bounds__(TILE_THREADS) bucket_step_kernel(
     const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
     const float* __restrict__ vx, const float* __restrict__ vy,
     const int32_t* __restrict__ ty, const float* __restrict__ params,
     uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
     float* __restrict__ ovx, float* __restrict__ ovy,
-    int gy, int gx, int cap) {
+    int n_grids, int gy, int gx, int cap, int sub_r, int sub_b, int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ StepScalars sc;
   if (threadIdx.x == 0) step_scalars(params, sc);
   __syncthreads();
 
-  // slot i of the stack, its grid's first slot, its bucket in the grid
-  long i, grid_base;
-  int b;
-  if (HALO) {
-    const int grid_slots = gy * gx * cap;
-    const int li = blockIdx.x * blockDim.x + threadIdx.x;
-    if (li >= grid_slots) return;
-    grid_base = (long)blockIdx.y * grid_slots;
-    i = grid_base + li;
-    b = li / cap;
-  } else {  // 64-bit indices: on one grid, 1% faster than the above on the H100
-    i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= (long)gy * gx * cap) return;
-    grid_base = 0;
-    b = (int)(i / cap);
-  }
-  const int cbx = b % gx, cby = b / gx;
-  const uint32_t xi = x[i], yi = y[i];
-  const float vxi = vx[i], vyi = vy[i];
-  if (ty[i] < 0 || (HALO && (cby < 1 || cby >= gy - 1 || cbx < 1 || cbx >= gx - 1))) {
-    ox[i] = xi;  // tombstone or ring slot: pass through
-    oy[i] = yi;
-    ovx[i] = vxi;
-    ovy[i] = vyi;
-    return;
-  }
+  constexpr int ring = HALO ? 1 : 0;
+  const int ry = gy - 2 * ring, rx = gx - 2 * ring;  // the receivers' rectangle
+  const int subs_y = (ry + sub_r - 1) / sub_r, subs_x = (rx + sub_b - 1) / sub_b;
+  const long per_grid = (long)subs_y * subs_x, n_subs = per_grid * n_grids;
+  const long row_stride = (long)gx * cap;
+  StageGeom g;
+  g.gy = gy;
+  g.gx = gx;
+  g.cap = cap;
+  g.rows = sub_r + 2;
+  g.cols = sub_b + 2;
+  g.width = cap;
+  const StageBuffers sm = stage_buffers(smem, g.rows, g.cols, cap);
 
-  float fx, fy;
-  external_force(sc, xi, yi, fx, fy);
+  for (long t = blockIdx.x; t < n_subs; t += gridDim.x) {
+    const long grid = t / per_grid;
+    const int sub = (int)(t - grid * per_grid);
+    const int sy = sub / subs_x, sx = sub - sy * subs_x;
+    const int row = ring + sy * sub_r, col = ring + sx * sub_b;  // first receiver bucket
+    g.grid_base = grid * gy * row_stride;
+    g.row0 = row - 1;
+    g.col0 = col - 1;
+    g.in_rows = min(sub_r, ry - sy * sub_r);  // the grid's edge cuts the sub-tile
+    g.in_cols = min(sub_b, rx - sx * sub_b);
+    const int n_recv = stage_region(x, y, ty, g, sm);
 
-  // 3x3 neighbourhood pair forces, fixed candidate order
-  for (int dy = -1; dy <= 1; ++dy) {
-    const int nby = cby + dy;
-    if (!HALO && (nby < 0 || nby >= gy)) continue;
-    for (int dx = -1; dx <= 1; ++dx) {
-      const int nbx = cbx + dx;
-      if (!HALO && (nbx < 0 || nbx >= gx)) continue;
-      const long base = grid_base + ((long)nby * gx + nbx) * cap;
-      for (int s = 0; s < cap; ++s) {
-        const long j = base + s;
-        if (j == i || __ldg(ty + j) < 0) continue;
-        const float ddx = __fmul_rn(__int2float_rn((int32_t)(__ldg(x + j) - xi)), sc.scale_x);
-        const float ddy = __fmul_rn(__int2float_rn((int32_t)(__ldg(y + j) - yi)), sc.scale_y);
-        const float f = pair_f_over_r(sc, __fadd_rn(__fmul_rn(ddx, ddx), __fmul_rn(ddy, ddy)));
-        fx = __fadd_rn(fx, __fmul_rn(f, ddx));
-        fy = __fadd_rn(fy, __fmul_rn(f, ddy));
+    // pass-through of the sub-tile's dead slots: none when every slot is a
+    // receiver, all of them (ty not read again) when there is none
+    if (n_recv < g.in_rows * g.in_cols * cap) {
+      copy_dead_slots(x, y, vx, vy, ty, ox, oy, ovx, ovy,
+                      g.grid_base + ((long)row * gx + col) * cap, row_stride, g.in_rows,
+                      g.in_cols * cap, cap, n_recv ? cap : 0, vec != 0);
+    }
+    if (HALO) {
+      // the ring strips beside a sub-tile on the interior's edge, live slots
+      // and all (width 0 copies a rectangle whole); the row strips take the
+      // corners, so every ring slot is written by exactly one block
+      const bool last_y = sy == subs_y - 1, last_x = sx == subs_x - 1;
+      const int c_lo = sx == 0 ? 0 : col, c_hi = last_x ? gx : col + g.in_cols;
+      if (sy == 0) {
+        copy_dead_slots(x, y, vx, vy, ty, ox, oy, ovx, ovy, g.grid_base + (long)c_lo * cap,
+                        row_stride, 1, (c_hi - c_lo) * cap, cap, 0, vec != 0);
+      }
+      if (last_y) {
+        copy_dead_slots(x, y, vx, vy, ty, ox, oy, ovx, ovy,
+                        g.grid_base + ((long)(gy - 1) * gx + c_lo) * cap, row_stride, 1,
+                        (c_hi - c_lo) * cap, cap, 0, vec != 0);
+      }
+      if (sx == 0) {
+        copy_dead_slots(x, y, vx, vy, ty, ox, oy, ovx, ovy, g.grid_base + (long)row * gx * cap,
+                        row_stride, g.in_rows, cap, cap, 0, vec != 0);
+      }
+      if (last_x) {
+        copy_dead_slots(x, y, vx, vy, ty, ox, oy, ovx, ovy,
+                        g.grid_base + ((long)row * gx + gx - 1) * cap, row_stride, g.in_rows,
+                        cap, cap, 0, vec != 0);
       }
     }
-  }
 
-  leapfrog(sc, xi, yi, vxi, vyi, fx, fy, ox[i], oy[i], ovx[i], ovy[i]);
+    step_staged_receivers(sc, g, sm, n_recv, vx, vy, ox, oy, ovx, ovy);
+    __syncthreads();  // the stage is consumed before the next sub-tile overwrites it
+  }
 }
 
 // The ext-layout step: the port of bucket_pallas.py:bucket_step_pallas_ext,
@@ -160,9 +202,6 @@ __global__ void bucket_step_kernel(
 // writes (the counterpart of the Pallas call's input/output aliasing, at
 // slot grain). Otherwise every tile is visited and every slot written.
 constexpr int P_OMAX = P_COUNT;  // the aux appends omax to the params vector
-constexpr int TILE_THREADS = 256;  // at least one thread per staged bucket
-constexpr int TILE_SUB_ROWS = 8;   // a sub-tile: at most 8 rows x 16 buckets,
-constexpr int TILE_SUB_COLS = 16;  // staged as 10 x 18 buckets with its ring
 
 template <bool COMPACT>
 __global__ void __launch_bounds__(TILE_THREADS) bucket_step_tiles_kernel(
@@ -214,18 +253,40 @@ __global__ void __launch_bounds__(TILE_THREADS) bucket_step_tiles_kernel(
     g.row0 = row - 1;
     g.col0 = col - 1;
     const int n_recv = stage_region(x, y, ty, g, sm);
-    for (int r = threadIdx.x; r < n_recv; r += blockDim.x) {
-      const Receiver rc = staged_receiver(r, g, sm);
-      const uint2 self = sm.cand[rc.pos];
-      const float vxi = vx[rc.slot], vyi = vy[rc.slot];
-      float fx, fy;
-      external_force(sc, self.x, self.y, fx, fy);
-      staged_pair_forces(sc, g, sm, rc, self.x, self.y, fx, fy);
-      leapfrog(sc, self.x, self.y, vxi, vyi, fx, fy, ox[rc.slot], oy[rc.slot], ovx[rc.slot],
-               ovy[rc.slot]);
-    }
+    step_staged_receivers(sc, g, sm, n_recv, vx, vy, ox, oy, ovx, ovy);
     __syncthreads();  // the stage is consumed before the next visit overwrites it
   }
+}
+
+// The sub-tile of a launch: at most TILE_SUB_ROWS x TILE_SUB_COLS buckets of
+// a rows x cols rectangle, with fewer columns where cap is large, so the
+// staged region fits shared memory; false when even one column does not
+struct SubTile {
+  int rows, cols;
+  size_t smem;
+};
+
+static bool pick_sub_tile(int rows, int cols, int cap, SubTile& st) {
+  const size_t smem_budget = 40 * 1024, smem_limit = 200 * 1024;
+  st.rows = rows < TILE_SUB_ROWS ? rows : TILE_SUB_ROWS;
+  st.cols = cols < TILE_SUB_COLS ? cols : TILE_SUB_COLS;
+  while (st.cols > 1 && stage_bytes(st.rows + 2, st.cols + 2, cap) > smem_budget) --st.cols;
+  st.smem = stage_bytes(st.rows + 2, st.cols + 2, cap);
+  return st.smem <= smem_limit && cap <= 0xffff;
+}
+
+// 16 bytes a thread in the pass-through copy needs cap a multiple of 4 and
+// aligned arrays: every bucket then starts on 16 bytes
+static int copies_vectorize(int cap, std::initializer_list<const void*> fields) {
+  int vec = cap % 4 == 0;
+  for (const void* f : fields) vec = vec && ((uintptr_t)f & 15) == 0;
+  return vec;
+}
+
+template <typename Kernel>
+static cudaError_t allow_shared_memory(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace
@@ -238,20 +299,24 @@ extern "C" int ps_bucket_step(
     const void* ty, const void* params,
     void* ox, void* oy, void* ovx, void* ovy,
     int n_grids, int gy, int gx, int cap, int ring, void* stream) {
-  const int threads = 128;
-  const dim3 blocks(ps_blocks((long)gy * gx * cap, threads), n_grids);
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (ring) {
-    bucket_step_kernel<true><<<blocks, threads, 0, s>>>(
-        (const uint32_t*)x, (const uint32_t*)y, (const float*)vx,
-        (const float*)vy, (const int32_t*)ty, (const float*)params,
-        (uint32_t*)ox, (uint32_t*)oy, (float*)ovx, (float*)ovy, gy, gx, cap);
-  } else {
-    bucket_step_kernel<false><<<blocks, threads, 0, s>>>(
-        (const uint32_t*)x, (const uint32_t*)y, (const float*)vx,
-        (const float*)vy, (const int32_t*)ty, (const float*)params,
-        (uint32_t*)ox, (uint32_t*)oy, (float*)ovx, (float*)ovy, gy, gx, cap);
+  const int ry = gy - (ring ? 2 : 0), rx = gx - (ring ? 2 : 0);
+  SubTile st;
+  if (n_grids < 1 || ry < 1 || rx < 1 || !pick_sub_tile(ry, rx, cap, st)) {
+    return (int)cudaErrorInvalidValue;
   }
+  // one block a sub-tile: fewer blocks striding over the sub-tiles timed the
+  // same on a dense grid and slower on a sparse one (PERF.md)
+  const long blocks = (long)ps_blocks(ry, st.rows) * ps_blocks(rx, st.cols) * n_grids;
+  if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  const int vec = copies_vectorize(cap, {x, y, vx, vy, ty, ox, oy, ovx, ovy});
+  auto kernel = ring ? bucket_step_kernel<true> : bucket_step_kernel<false>;
+  const cudaError_t err = allow_shared_memory(kernel, st.smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)blocks, TILE_THREADS, st.smem, (cudaStream_t)stream>>>(
+      (const uint32_t*)x, (const uint32_t*)y, (const float*)vx,
+      (const float*)vy, (const int32_t*)ty, (const float*)params,
+      (uint32_t*)ox, (uint32_t*)oy, (float*)ovx, (float*)ovy,
+      n_grids, gy, gx, cap, st.rows, st.cols, vec);
   return (int)cudaGetLastError();
 }
 
@@ -269,34 +334,23 @@ extern "C" int ps_bucket_step_tiles(
     const void* sizes, void* ox, void* oy, void* ovx, void* ovy,
     int gy, int gx, int cap, int ty_rows, int n_chunks, int compact,
     int block_budget, void* stream) {
-  const size_t smem_budget = 40 * 1024, smem_limit = 200 * 1024;
   const int row_buckets = gx / n_chunks;
-  const int sub_r = ty_rows < TILE_SUB_ROWS ? ty_rows : TILE_SUB_ROWS;
-  int sub_b = row_buckets < TILE_SUB_COLS ? row_buckets : TILE_SUB_COLS;
-  while (sub_b > 1 && stage_bytes(sub_r + 2, sub_b + 2, cap) > smem_budget) --sub_b;
-  const size_t smem = stage_bytes(sub_r + 2, sub_b + 2, cap);
-  if (smem > smem_limit || cap > 0xffff) return (int)cudaErrorInvalidValue;
-  const unsigned tile_x = ps_blocks(ty_rows, sub_r) * ps_blocks(row_buckets, sub_b);
+  SubTile st;
+  if (!pick_sub_tile(ty_rows, row_buckets, cap, st)) return (int)cudaErrorInvalidValue;
+  const unsigned tile_x = ps_blocks(ty_rows, st.rows) * ps_blocks(row_buckets, st.cols);
   const int n_tiles = (gy / ty_rows) * n_chunks;
   const int walkers = (int)((block_budget + tile_x - 1) / tile_x);
   const dim3 blocks(tile_x, walkers < 1 ? 1 : (walkers > n_tiles ? n_tiles : walkers));
-  const cudaStream_t s = (cudaStream_t)stream;
-  // 16 bytes a thread in the pass-through copy needs aligned rows of slots
-  const void* fields[] = {x, y, vx, vy, ty, ox, oy, ovx, ovy};
-  int vec = cap % 4 == 0;
-  for (const void* f : fields) vec = vec && ((uintptr_t)f & 15) == 0;
+  const int vec = copies_vectorize(cap, {x, y, vx, vy, ty, ox, oy, ovx, ovy});
   auto kernel = compact ? bucket_step_tiles_kernel<true> : bucket_step_tiles_kernel<false>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  kernel<<<blocks, TILE_THREADS, smem, s>>>(
+  const cudaError_t err = allow_shared_memory(kernel, st.smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, TILE_THREADS, st.smem, (cudaStream_t)stream>>>(
       (const uint32_t*)x, (const uint32_t*)y, (const float*)vx,
       (const float*)vy, (const int32_t*)ty, (const float*)params,
       (const int32_t*)flags, (const int32_t*)order, (const int32_t*)sizes,
       (uint32_t*)ox, (uint32_t*)oy, (float*)ovx, (float*)ovy,
-      gy, gx, cap, ty_rows, n_chunks, sub_r, sub_b, vec);
+      gy, gx, cap, ty_rows, n_chunks, st.rows, st.cols, vec);
   return (int)cudaGetLastError();
 }
 

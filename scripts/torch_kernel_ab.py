@@ -15,10 +15,11 @@ their halo modes), ``phase_allpairs_kernel`` (``gas-diffusion-16k``) plus the
 all-pairs step on the 2,048-slot droplet, and ``phase_ext_kernels`` (the 1M
 user scene at its loaded state, omax 6: the classic, every-tile ``ext`` and
 live-tiles ``compact`` steps) plus the same three steps on the state four
-classic frames later (omax 8). Every phase also holds each kernel against
-its plain version. A turn prints one JSON line of kernel times in ms; the
-card's ``nvidia-smi`` name and power limit come first. Exits non-zero when a
-turn fails.
+classic frames later (omax 8), the dest on the user scene, and the classic
+step and the dest on the editor's 1024x1024 lattice (a 512x512x16 grid).
+Every phase also holds each kernel against its plain version. A turn prints
+one JSON line of kernel times in ms; the card's ``nvidia-smi`` name and power
+limit come first. Exits non-zero when a turn fails.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from particle_simulator_tpu_torch.ops import bucket_cuda as bc
 from particle_simulator_tpu_torch.ops.allpairs_cuda import allpairs_step_cuda
 from particle_simulator_tpu_torch.physics import bucket
 from particle_simulator_tpu_torch.physics.bucket import GridConfig
-from particle_simulator_tpu_torch.scenes.library import liquid_droplet
+from particle_simulator_tpu_torch.scenes.library import _scene, liquid_droplet
 lib = build.library()
 # the per-pair counts only feed the phases' bounds, which this script drops
 counts = getattr(cs, "FORCE_LAW_COUNTS", None) or cs.sass_pair_counts(
@@ -57,6 +58,7 @@ ms.update({f"{k}_omax{user['omax']}": user["ms"][k] for k in ("classic", "ext", 
 sim = Simulator(device=dev)
 sim.load_frame(scene)
 state, pv = sim.state, sim._pvec
+ms["dest_user"] = cs.cuda_ms(lambda: bc.move_dest_cuda(sim.state), reps)
 for _ in range(4):
     state = bc.run_frame_bucket_cuda(state, pv, sim.params.steps_per_frame, sim.grid.move_every)
 aux = bucket.ext_step_aux(state, pv, sim._lane_chunks, 8)
@@ -64,6 +66,12 @@ omax, pair = int(aux.params[-1]), bc.ext_pair(state)
 ms[f"classic_omax{omax}"] = cs.cuda_ms(lambda: bc.bucket_step_cuda(state, pv), reps)
 ms[f"ext_omax{omax}"] = cs.cuda_ms(lambda: bc.bucket_step_ext_cuda(pair, aux, False), reps)
 ms[f"compact_omax{omax}"] = cs.cuda_ms(lambda: bc.bucket_step_ext_cuda(pair, aux, True), reps)
+# the lattice the headless editor sends (1024x1024 at 1.1 r0 over 0.6 of the box)
+lat = Simulator(device=dev)
+lat.load_frame(_scene(1024, 1024, distance_factor=1.1, speed=0.0, box_fill=0.6, dt=1e-14))
+shape = "x".join(str(v) for v in lat.state.x.shape)
+ms[f"classic_lattice_{shape}"] = cs.cuda_ms(lambda: bc.bucket_step_cuda(lat.state, lat._pvec), reps)
+ms[f"dest_lattice_{shape}"] = cs.cuda_ms(lambda: bc.move_dest_cuda(lat.state), reps)
 print("RESULT " + json.dumps(ms))
 '''
 

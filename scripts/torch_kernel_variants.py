@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Try shapes of the two redesigned kernels on one card without touching the
+"""Try shapes of the redesigned kernels on one card without touching the
 sources: each variant is a patched copy of ``ops/csrc`` (a ``constexpr`` at
 the top of a source, a launch bound, or one line of code), built on its own
 with the repo's nvcc flags, loaded with ``ctypes`` and called through its
 ``extern "C"`` entry point on the same tensors as the others.
 
-Run on a machine with one NVIDIA H100, from the repository root:
+Run on a machine with one NVIDIA H100, from the repository root, with the
+families to try (default: all of ``allpairs tiles step dest``):
 
-    python3 scripts/torch_kernel_variants.py
+    python3 scripts/torch_kernel_variants.py [family ...]
 
 All variants build in parallel (one nvcc each, ~10 s in all) under the
 git-ignored ``particle_simulator_tpu_torch/build/variants``. Prints the
@@ -24,7 +25,14 @@ card's ``nvidia-smi`` name and power limit, then one JSON line a variant:
   also with 4 and 16 blocks an SM in the launch instead of the wrapper's
   ``TILE_BLOCKS_PER_SM``. ``stage_only`` switches the receiver loop
   off (its result is wrong on purpose): what the stage and the pass-through
-  cost alone.
+  cost alone;
+- ``step``: the classic and halo step (``ps_bucket_step``) on the dense
+  512x256x8 scene, its four halo-padded shards, the 1M user scene and the
+  editor's 1024x1024 lattice (512x512x16), each held bit for bit against the
+  repo's own build, then timed: one block a sub-tile (the sources) against
+  blocks that stride over the sub-tiles, other block and sub-tile shapes;
+- ``dest``: the dest (``ps_bucket_dest``) on the same four states, held
+  against the repo's own build, then timed: other block and sub-tile shapes.
 
 A substitution that no longer matches the sources is reported and its
 variant skipped. Exits non-zero when a variant that built disagrees.
@@ -95,7 +103,7 @@ VARIANTS = {
         "threads128_sub4x16": tiles_shape(128, 4, 16),
         "6_blocks_an_sm": tiles_shape(extra=[(TILE_BOUND, TILE_BOUND.replace(")", ", 6)", 1))]),
         "stage_only": tiles_shape(extra=[("r < n_recv; r += blockDim.x",
-                                          "r < n_recv && gy < 0; r += blockDim.x")]),
+                                          "r < n_recv && g.gy < 0; r += blockDim.x")]),
         "tile_order_stride_633": tiles_shape(extra=[
             (TILE_ORDER, "const int tile = COMPACT ? __ldg(order + k) : "
                          "(n_visits == 1024 ? (int)((long)k * 633 % 1024) : k);")]),
@@ -104,18 +112,63 @@ VARIANTS = {
         "streaming_copies": tiles_shape(extra=COPIES),
     },
 }
-SOURCE = {"allpairs": "allpairs_step.cu", "tiles": "bucket_step.cu"}
-KERNEL = {"allpairs": "allpairs_step_kernel", "tiles": "bucket_step_tiles_kernel<1>"}
 
 
-def start_builds(out_dir):
-    """One patched copy and one nvcc per variant; (family, name, dir, process)."""
+def step_launch(per_sm):
+    """``per_sm`` blocks for each of the H100's 132 SMs stride over the
+    sub-tiles (the kernel's loop takes any launch), not one block each."""
+    count = "(long)ps_blocks(ry, st.rows) * ps_blocks(rx, st.cols) * n_grids;"
+    return [(f"  const long blocks = {count}",
+             f"  const long subs = {count}\n"
+             f"  const long blocks = subs < {per_sm} * 132 ? subs : {per_sm} * 132;")]
+
+
+def dest_shape(threads=256, rows=8, cols=16):
+    return [("constexpr int DEST_THREADS = 256;", f"constexpr int DEST_THREADS = {threads};"),
+            ("constexpr int DEST_SUB_ROWS = 8;", f"constexpr int DEST_SUB_ROWS = {rows};"),
+            ("constexpr int DEST_SUB_COLS = 16;", f"constexpr int DEST_SUB_COLS = {cols};")]
+
+
+VARIANTS["step"] = {
+    "one_block_a_subtile (the sources)": [],
+    "4_blocks_an_sm": step_launch(4),
+    "8_blocks_an_sm": step_launch(8),
+    "16_blocks_an_sm": step_launch(16),
+    "unroll1": tiles_shape(unroll=1),
+    "threads128_sub8x8": tiles_shape(128, 8, 8),
+    "threads128_sub4x16": tiles_shape(128, 4, 16),
+    "threads512_sub16x16": tiles_shape(512, 16, 16),
+    "copy_even_when_all_live": [("if (n_recv < g.in_rows * g.in_cols * cap) {", "{")],
+}
+VARIANTS["dest"] = {
+    "threads256_sub8x16 (the sources)": [],
+    "threads128_sub8x16": dest_shape(128),
+    "threads512_sub8x16": dest_shape(512),
+    "threads128_sub4x16": dest_shape(128, 4, 16),
+    "threads256_sub8x32": dest_shape(256, 8, 32),
+    "threads256_sub16x16": dest_shape(256, 16, 16),
+    "threads512_sub16x32": dest_shape(512, 16, 32),
+    "threads1024_sub16x32": dest_shape(1024, 16, 32),
+    # (bucket, slot) of a thread's next slot by a division instead of an advance
+    "division_per_slot": [("b += b_step, s += s_step;",
+                           "b = (i + blockDim.x) / cap, s = i + blockDim.x - b * cap;"),
+                          ("if (s >= cap) ++b, s -= cap;", "")],
+}
+SOURCE = {"allpairs": "allpairs_step.cu", "tiles": "bucket_step.cu", "step": "bucket_step.cu",
+          "dest": "bucket_dest.cu"}
+KERNEL = {"allpairs": "allpairs_step_kernel", "tiles": "bucket_step_tiles_kernel<1>",
+          "step": "bucket_step_kernel<0>", "dest": "bucket_dest_kernel<0>"}
+
+
+def start_builds(out_dir, families):
+    """One patched copy and one nvcc per variant of ``families``; (family,
+    name, dir, process)."""
     from particle_simulator_tpu_torch.ops import build
 
     nvcc = build.find_nvcc()
     started = []
-    for family, variants in VARIANTS.items():
-        for name, subs in variants.items():
+    for family in families:
+        for name, subs in VARIANTS[family].items():
             d = os.path.join(out_dir, family, name.split(" ")[0])
             shutil.rmtree(d, ignore_errors=True)
             shutil.copytree(build.CSRC, d)
@@ -139,7 +192,32 @@ def start_builds(out_dir):
     return started
 
 
-def main() -> int:
+def grid_states(dev):
+    """label -> (state, params vector, (bx_log2, by_log2), shard offsets or
+    None, ring) of the step and dest families' four states."""
+    import chip_smoke as cs
+    from particle_simulator_tpu_torch.engine.simulator import Simulator
+    from particle_simulator_tpu_torch.engine.state import SimParams, state_from_numpy
+    from particle_simulator_tpu_torch.parallel import domain
+    from particle_simulator_tpu_torch.physics.bucket import GridConfig
+
+    cfg = GridConfig(8, 9, 8)
+    parts, meta, _ = cs.dense_grid_scene(cfg)
+    dense = state_from_numpy(parts, cfg.capacity, dev).reshape(cfg.grid_shape)
+    pv = SimParams.from_record(meta).vector(dev)
+    log2 = (cfg.bx_log2, cfg.by_log2)
+    mesh = cs.one_card_mesh(dev)
+    (padded,) = domain.exchange_halo(domain.shard_state(dense, mesh), mesh)
+    (offsets,) = domain.ring_plan(mesh, padded.x.shape[1] - 2, padded.x.shape[2] - 2).offsets
+    cases = {"dense": (dense, pv, log2, None, 0), "dense_halo": (padded, pv, log2, offsets, 1)}
+    for label, scene in (("user", cs.user_scene()), ("editor_lattice", cs.editor_lattice())):
+        sim = Simulator(device=dev)
+        sim.load_frame(scene)
+        cases[label] = (sim.state, sim._pvec, (sim.grid.bx_log2, sim.grid.by_log2), None, 0)
+    return cases
+
+
+def main(argv: list[str]) -> int:
     import torch
 
     import chip_smoke as cs
@@ -149,12 +227,16 @@ def main() -> int:
     from particle_simulator_tpu_torch.physics import bucket, step
     from particle_simulator_tpu_torch.scenes.library import _scene, gas_diffusion, liquid_droplet
 
+    families = argv or list(VARIANTS)
+    if any(f not in VARIANTS for f in families):
+        print(__doc__, file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    started = start_builds(os.path.join(build.BUILD_DIR, "variants"))
+    started = start_builds(os.path.join(build.BUILD_DIR, "variants"), families)
     build.library()  # the repo's own library: the classic step the tiles are held against
     dev, reps = "cuda", 30
     ptr, integer = ctypes.c_void_p, ctypes.c_int
@@ -163,12 +245,14 @@ def main() -> int:
         return torch.cuda.current_stream().cuda_stream
 
     ap_cases = {"16384": cs.compact_state(gas_diffusion(), dev),
-                "2048": cs.compact_state(liquid_droplet(), dev)}
+                "2048": cs.compact_state(liquid_droplet(), dev)} if "allpairs" in families else {}
     ap_refs = {}
     tile_cases = {}
     for label, scene in (("user", cs.user_scene()),
                          ("fill07", _scene(1024, 1024, distance_factor=1.1, speed=1.0,
                                           box_fill=0.7))):
+        if "tiles" not in families:
+            break
         sim = Simulator(device=dev)
         sim.load_frame(scene)
         aux = bucket.ext_step_aux(sim.state, sim._pvec, sim._lane_chunks, 8)
@@ -178,6 +262,7 @@ def main() -> int:
                           "classic_ms": cs.cuda_ms(
                               lambda: bc.bucket_step_cuda(sim.state, sim._pvec), reps)}),
               flush=True)
+    grid_cases = grid_states(dev) if {"step", "dest"} & set(families) else {}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     budget = bc.TILE_BLOCKS_PER_SM * sms
 
@@ -209,6 +294,44 @@ def main() -> int:
                            for a, b in zip(out, ap_refs[label, step.SEGMENT][:4]))
                 failed |= not same
                 line[label] = {"bit_identical": same, "ms": cs.cuda_ms(call, reps)}
+        elif family == "step":
+            lib.ps_bucket_step.argtypes = [ptr] * 10 + [integer] * 5 + [ptr]
+            for label, (state, pv, _, _, ring) in grid_cases.items():
+                *lead, gy, gx, cap = state.x.shape
+                n = lead[0] if lead else 1
+                out = [torch.empty_like(a) for a in state[:4]]
+
+                def call():
+                    rc = lib.ps_bucket_step(*(a.data_ptr() for a in state), pv.data_ptr(),
+                                            *(o.data_ptr() for o in out), n, gy, gx, cap, ring,
+                                            stream())
+                    assert rc == 0, rc
+
+                call()
+                ref = (bc.bucket_step_halo_cuda if ring else bc.bucket_step_cuda)(state, pv)
+                same = all(torch.equal(a, b) for a, b in zip(out, ref[:4]))
+                failed |= not same
+                line[label] = {"bit_identical": same, "ms": cs.cuda_ms(call, reps)}
+        elif family == "dest":
+            lib.ps_bucket_dest.argtypes = [ptr] * 5 + [integer] * 7 + [ptr]
+            for label, (state, _, log2, offsets, ring) in grid_cases.items():
+                *lead, gy, gx, cap = state.x.shape
+                n = lead[0] if lead else 1
+                out = torch.empty_like(state.ty)
+
+                def call():
+                    rc = lib.ps_bucket_dest(state.x.data_ptr(), state.y.data_ptr(),
+                                            state.ty.data_ptr(),
+                                            offsets.data_ptr() if ring else None, out.data_ptr(),
+                                            n, gy, gx, cap, *log2, ring, stream())
+                    assert rc == 0, rc
+
+                call()
+                ref = (bc.move_dest_halo_cuda(state, *log2, offsets) if ring
+                       else bc.move_dest_cuda(state))
+                same = torch.equal(out, ref)
+                failed |= not same
+                line[label] = {"bit_identical": same, "ms": cs.cuda_ms(call, reps)}
         else:
             lib.ps_bucket_step_tiles.argtypes = [ptr] * 13 + [integer] * 7 + [ptr]
             for label, (state, aux, classic) in tile_cases.items():
@@ -237,4 +360,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

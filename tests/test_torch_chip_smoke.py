@@ -209,3 +209,64 @@ def test_ext_geometry_sweep_runs_through_the_plain_versions():
     assert {ln["ty_rows"] for ln in lines} == {4, 8, 16}
     assert any(ln["grid"][2] % 4 for ln in lines)
     assert any(ln["live_tile_share"] < 1 for ln in lines) and all(ln["live"] for ln in lines)
+
+
+@pytest.mark.parametrize("kernel, mangled", [
+    ("bucket_step_kernel<0>",
+     "_ZN47_GLOBAL__N__9040dbc3_14_bucket_step_cu_13312ab318bucket_step_kernelILb0EEEvPKjS2_"
+     "PKfS4_PKiS4_PjS7_PfS8_iiiiiii"),
+    ("bucket_step_kernel<1>",
+     "_ZN47_GLOBAL__N__9040dbc3_14_bucket_step_cu_13312ab318bucket_step_kernelILb1EEEvPKjS2_"
+     "PKfS4_PKiS4_PjS7_PfS8_iiiiiii"),
+    ("bucket_dest_kernel<0>",
+     "_ZN47_GLOBAL__N__1f2e3d4c_14_bucket_dest_cu_0a1b2c3d18bucket_dest_kernelILb0EEEvPKjS2_"
+     "PKiS4_Piiiiiiii"),
+    ("bucket_dest_kernel<1>",
+     "_ZN47_GLOBAL__N__1f2e3d4c_14_bucket_dest_cu_0a1b2c3d18bucket_dest_kernelILb1EEEvPKjS2_"
+     "PKiS4_Piiiiiiii"),
+])
+def test_ptxas_summary_names_the_step_and_dest_instances(kernel, mangled):
+    """The build line's figures of the staged step and the target-centred
+    dest: each template instance under its own name, with its dynamic
+    shared memory left out (ptxas reports the static part only)."""
+    log = f"""ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'
+ptxas info    : Function properties for {mangled}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 56 registers, used 1 barriers, 72 bytes smem
+"""
+    assert chip_smoke.ptxas_summary(log) == {
+        kernel: {"spill_stores": 0, "spill_loads": 0, "registers": 56, "smem": 72}}
+
+
+def test_step_dest_geometry_sweep_runs_through_the_plain_versions():
+    """The card-side sweep of the classic and halo step and dest, rehearsed
+    on CPU tensors (the wrappers run the plain versions): between its cases
+    sides that no sub-tile divides, caps 6, 8, 12 and 64, stacks of 1 to 4
+    shards, and moves that drop particles and pull ring particles in."""
+    lines = chip_smoke.step_dest_geometry_sweep("cpu")
+    shapes = [tuple(ln["shape"]) for ln in lines]
+    assert shapes == list(chip_smoke.STEP_DEST_GEOMETRIES)
+    assert {s[-1] for s in shapes} >= {6, 8, 12, 64}
+    assert {s[0] for s in shapes if len(s) == 4} == {1, 2, 3, 4}
+    assert any((s[-3] - 2) % 8 and (s[-2] - 2) % 16 for s in shapes if len(s) == 4)
+    for halo in (False, True):
+        assert any(ln["dropped_by_move"] for ln in lines if ln["halo"] == halo)
+    assert all(ln["receivers"] for ln in lines)
+    assert any(ln["pulled_in_from_ring"] for ln in lines)
+
+
+def test_drift_grid_places_shards_in_the_global_grid():
+    """The sweep's scenes: slot prefixes with holes, a dead corner, shards
+    inside a 64 x 64 global grid with the first at its origin, and most
+    particles within one bucket of where they are stored."""
+    state, bx_log2, by_log2, offsets = chip_smoke.drift_grid((3, 19, 33, 8), 1)
+    assert (bx_log2, by_log2) == (6, 6) and offsets.dtype == torch.int32
+    assert offsets[0].tolist() == [0, 0]
+    assert (offsets[:, 0] + 17 <= 64).all() and (offsets[:, 1] + 31 <= 64).all()
+    assert not (state.ty[:, :9, :16] >= 0).any() and (state.ty[:, 9:, 16:] >= 0).any()
+    dest = bucket.move_dest_direct_halo(state, bx_log2, by_log2, offsets)
+    live = state.ty >= 0
+    assert 0.3 < float((dest[live] >= 0).float().mean()) < 0.95
+    grid, bx, by, none = chip_smoke.drift_grid((16, 64, 16), 2)
+    assert (bx, by, none) == (6, 4, None) and grid.x.shape == (16, 64, 16)
+    assert all(a.is_contiguous() for a in grid)
