@@ -117,7 +117,22 @@ exits non-zero without printing a result):
     frames of the liquid droplet rendered to PNGs and a GIF that decode to
     ``--size``, the stats line; one frame under ``utils/profiling.py:trace``
     with an ``annotate("dispatch")`` range: the trace file names the range
-    and the step kernel.
+    and the step kernel;
+20. (run right after phase 14) several processes
+    (``parallel/multihost.py``): two processes share the card over gloo,
+    the ring staged through host memory, on the (2, 2) global mesh of two
+    shards each. First the dense scene's three 100-step
+    frames through the sharded frame in each process (``python
+    chip_smoke.py --child-frame ...``), rank 0's gathered grid bit-identical
+    to ``run_frame_bucket_cuda`` computed here, then frames on the clock and
+    under the profiler in each process; then the 1024x1024 editor lattice
+    served for 12 frames to the unchanged headless editor by two daemon
+    processes started through ``scripts/torch_launch_multihost.sh ...
+    --devices 4``: every frame finite, the echo 1,048,576 particles, the
+    frame period at process 0's wire writes beside phase 11's. Every
+    process reports its launches (the halo kernels and no other), its
+    backend and device, its ring bytes and host time a step (and of it the
+    staging and the sends' waits), and the jax modules it imported (none).
 
 Phases 15-19 also hold every kernel they launch against its plain version,
 bit for bit, on their own states (``KernelHold``): each config's, each sweep
@@ -126,12 +141,16 @@ run, the droplet's before and after a frame. These comparisons' launches are
 not counted, and their errors go into the kernels line's ``max_abs_err``.
 
 On a machine with more than one card, phases 10 and 11 run once more on a
-mesh of every card, one shard a card.
+mesh of every card, one shard a card, and phase 20 with one process a card
+over NCCL (``multi_card``; ``scripts/torch_multicard_chip.py`` runs only
+these).
 
 The last three lines are the card's ``nvidia-smi`` line, the kernels JSON
 line and the result line. In the kernels line ``launches`` is the count of
-the served slice that runs the kernel and ``launches_scripts`` that of
-phases 15-19, each counted from 0 around its own run. It exits non-zero when
+the served slice that runs the kernel, ``launches_scripts`` that of
+phases 15-19, each counted from 0 around its own run, and
+``launches_multiprocess`` that of phase 20's two daemon processes (each
+counts from its start), summed. It exits non-zero when
 ``torch.cuda.is_available()`` is false.
 """
 
@@ -1227,15 +1246,10 @@ def phase_sharded_frame(device, cfg, frames: int, steps: int, timed: int, mesh=N
         if i == 0:
             per_frame = {k: v for k, v in bc.LAUNCHES.items() if k in HALO_KERNELS}
     got = ParticleState(*(a[:cfg.by] for a in domain.gather_state(blocks, mesh)))
-    if not torch.equal(got.ty, single.ty):
-        raise AssertionError(f"sharded frame: ty differs at {int((got.ty != single.ty).sum())}")
+    identity = same_grid(got, single, "sharded frame")
     alive = single.ty >= 0
-    for name, a, b in zip(got._fields[:4], got, single):
-        if not torch.equal(a[alive], b[alive]):
-            raise AssertionError(f"sharded frame: live {name} differs")
     if not bool(torch.isfinite(single.vx[alive]).all()):
         raise AssertionError("sharded frame: non-finite velocities")
-    all_slots = all(torch.equal(a, b) for a, b in zip(got, single))
 
     def run(runner, n):
         torch.cuda.synchronize()
@@ -1261,8 +1275,7 @@ def phase_sharded_frame(device, cfg, frames: int, steps: int, timed: int, mesh=N
     line = {"grid": list(cfg.grid_shape), "mesh": list(mesh.shape),
             "devices": [str(d) for d in mesh.flat], "particles": live,
             "survivors": int(alive.sum()), "frames_compared": frames,
-            "steps_per_frame": steps, "bit_identical_live": True,
-            "bit_identical_all_slots": all_slots,
+            "steps_per_frame": steps, **identity,
             "launches_per_sharded_frame": per_frame,
             "frame_ms": {"single_device": [ms[0], ms[3]], "sharded": [ms[1], ms[2]]},
             "sharded_over_single": (ms[1] + ms[2]) / (ms[0] + ms[3]),
@@ -2002,15 +2015,393 @@ def phase_scene_cli(workdir: str, hold: KernelHold, frames: int = 3, size: int =
     return line, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 20: several processes (parallel/multihost.py)
+# ---------------------------------------------------------------------------
+
+def same_grid(got, ref, label: str) -> dict:
+    """Raise unless ``ty`` is equal everywhere and x, y, vx, vy on every live
+    slot; say whether every slot is equal too."""
+    import torch
+
+    if not torch.equal(got.ty, ref.ty):
+        raise AssertionError(f"{label}: ty differs at {int((got.ty != ref.ty).sum())} slots")
+    alive = ref.ty >= 0
+    for name, a, b in zip(got._fields[:4], got, ref):
+        if not torch.equal(a[alive], b[alive]):
+            raise AssertionError(f"{label}: live {name} differs")
+    return {"bit_identical_live": True,
+            "bit_identical_all_slots": all(torch.equal(a, b) for a, b in zip(got, ref))}
+
+
+def child_lines(outs, label: str) -> list:
+    """(rc, stdout, stderr) of each child -> the JSON object on the last
+    line of each one's standard output; raises on a child that failed, on
+    a missing line and on a child that imported jax or the JAX package."""
+    lines = []
+    for rank, (rc, out, err) in enumerate(outs):
+        if rc != 0:
+            raise AssertionError(f"{label}: process {rank} exited {rc}:\n{out[-2000:]}\n"
+                                 f"{err[-4000:]}")
+        text = out.strip().splitlines()
+        if not text:
+            raise AssertionError(f"{label}: process {rank} printed no line:\n{err[-4000:]}")
+        lines.append(json.loads(text[-1]))
+    return lines
+
+
+def rank_stats_lines(outs, label: str) -> list:
+    """(rc, stdout, stderr) of each daemon process -> its ``engine: rank
+    stats`` object; raises on a nonzero exit or a missing line."""
+    stats = []
+    for rank, (rc, out, err) in enumerate(outs):
+        found = [ln for ln in err.splitlines() if ln.startswith("engine: rank stats ")]
+        if rc != 0 or len(found) != 1:
+            raise AssertionError(f"{label}: daemon {rank} exited {rc} with {len(found)} stats "
+                                 f"lines:\n{err[-4000:]}")
+        stats.append(json.loads(found[0][len("engine: rank stats "):]))
+    return stats
+
+
+def check_processes(lines, path=HALO_KERNELS, backend: str | None = None) -> dict:
+    """Every process's line: each kernel of ``path`` launched, no other
+    kernel, nothing of jax imported, the backend the run asked for. Returns
+    the launches summed over the processes."""
+    total = {}
+    for rank, line in enumerate(lines):
+        launches = line["launches"]
+        if any(launches.get(k, 0) == 0 for k in path):
+            raise AssertionError(f"process {rank}: a kernel of the path never launched: "
+                                 f"{launches}")
+        if any(v for k, v in launches.items() if k not in path):
+            raise AssertionError(f"process {rank}: a kernel of another path launched: "
+                                 f"{launches}")
+        if line["foreign_modules"]:
+            raise AssertionError(f"process {rank} imported {line['foreign_modules']}")
+        if backend is not None and line["backend"] != backend:
+            raise AssertionError(f"process {rank} ran over {line['backend']}, not {backend}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _wait_all(procs, timeout: float, label: str):
+    """(rc, stdout, stderr) of every process; kills them all and raises when
+    one outlives ``timeout``."""
+    outs = []
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            outs.append((p.returncode, out, err))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"{label}: a process outlived {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def multiprocess_env(world: int, rank: int, coordinator: str, own_cards: bool) -> dict:
+    """A process's environment: the PS_TPU_* group and, for processes that
+    share a card, only the first card this script sees (so that every rank
+    lands on it whatever the machine holds)."""
+    env = dict(os.environ, PS_TPU_COORDINATOR=coordinator, PS_TPU_NUM_PROCESSES=str(world),
+               PS_TPU_PROCESS_ID=str(rank), PYTHON=sys.executable,
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    if not own_cards:
+        env["CUDA_VISIBLE_DEVICES"] = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    return env
+
+
+def hold_halo(label: str, blocks, mesh, cfg, params) -> dict:
+    """The three halo kernels against their plain versions, bit for bit, on
+    this process's own blocks of a sharded grid, their rings filled by the
+    mesh's exchange (a collective: every process calls this at the same
+    point). The comparison's launches and ring traffic are taken out of the
+    counts again. Returns a line whose ``max_abs_err`` holds each kernel's
+    largest live-velocity difference (0.0, or the comparison raised)."""
+    import torch
+
+    from particle_simulator_tpu_torch.ops import bucket_cuda as bc
+    from particle_simulator_tpu_torch.parallel import domain
+    from particle_simulator_tpu_torch.physics import bucket
+
+    launches, exchange = dict(bc.LAUNCHES), dict(domain.EXCHANGE)
+    padded = domain.exchange_halo(blocks, mesh)
+    offsets = domain.ring_plan(mesh, *blocks[0].x.shape[-3:-1]).offsets
+    err = dict.fromkeys(HALO_KERNELS, 0.0)
+    line = {"at": label, "blocks": [list(b.x.shape) for b in padded],
+            "live": sum(int((b.ty >= 0).sum()) for b in padded), "migrating_in_from_ring": 0}
+    for b, pv, off in zip(padded, params, offsets):
+        err["step_halo"] = max(err["step_halo"], same_state(
+            bc.bucket_step_halo_cuda(b, pv), bucket.bucket_step_halo(b, pv),
+            f"{label}: the halo step against its plain version"))
+        dest = bc.move_dest_halo_cuda(b, cfg.bx_log2, cfg.by_log2, off)
+        dest_ref = bucket.move_dest_direct_halo(b, cfg.bx_log2, cfg.by_log2, off)
+        if not torch.equal(dest, dest_ref):
+            raise AssertionError(f"{label}: halo dest ids differ at "
+                                 f"{int((dest != dest_ref).sum())} slots")
+        err["place_halo"] = max(err["place_halo"], same_state(
+            bc.bucket_place_halo_cuda(b, dest_ref), bucket.bucket_place_halo(b, dest_ref),
+            f"{label}: the halo place against its plain version"))
+        ring = dest_ref.clone()
+        ring[:, 1:-1, 1:-1] = -1
+        line["migrating_in_from_ring"] += int((ring >= 0).sum())
+    bc.LAUNCHES.update(launches)
+    domain.EXCHANGE.update(exchange)
+    line["max_abs_err"] = err
+    return line
+
+
+def hold_served(label: str, sim) -> dict:
+    """``hold_halo`` on a daemon's own blocks (its ``--inspect`` hook)."""
+    if not sim.sharded:
+        raise AssertionError(f"{label}: the served scene is not sharded")
+    return hold_halo(label, sim.state, sim.mesh, sim.grid, sim._pvec)
+
+
+def inspect_lines(outs, label: str) -> list:
+    """(rc, stdout, stderr) of each daemon process -> its ``engine: inspect``
+    objects (``hold_served``'s lines); raises unless each process held its
+    blocks both as loaded and after the frames."""
+    held = []
+    for rank, (_, _, err) in enumerate(outs):
+        found = [json.loads(ln[len("engine: inspect "):]) for ln in err.splitlines()
+                 if ln.startswith("engine: inspect ")]
+        if len(found) != 2:
+            raise AssertionError(f"{label}: daemon {rank} held its blocks {len(found)} times, "
+                                 f"not twice:\n{err[-4000:]}")
+        held += found
+    return held
+
+
+def held_errors(held) -> dict:
+    """The largest ``max_abs_err`` of each halo kernel over ``hold_halo``'s
+    lines."""
+    if not held:
+        raise AssertionError("no halo hold ran")
+    return {k: max(line["max_abs_err"][k] for line in held) for k in HALO_KERNELS}
+
+
+# phase 20 runs the 1024x1024 editor lattice and the dense scene at these
+# depths: frames compared, steps a frame, frames timed, frames served
+MP_FRAMES, MP_STEPS, MP_TIMED, MP_SERVE_FRAMES = 3, 100, 3, 12
+
+
+def multiprocess_frame_child(workdir: str, cfg, n_shards: int) -> int:
+    """One process of phase 20's sharded frame (``python chip_smoke.py
+    --child-frame ...`` with the PS_TPU_* group): the dense scene of grid
+    ``cfg`` on the global mesh, its halo kernels held as loaded, then
+    ``MP_FRAMES`` frames, the kernels held again and rank 0's gathered grid
+    saved for the parent, then ``MP_TIMED`` frames on the clock, twice, and
+    two under the profiler. Prints one JSON line."""
+    import torch
+    import torch.distributed as dist
+
+    from particle_simulator_tpu_torch.engine.state import SimParams, state_from_numpy
+    from particle_simulator_tpu_torch.ops import bucket_cuda as bc
+    from particle_simulator_tpu_torch.parallel import domain, multihost
+
+    if not multihost.init_distributed("cuda"):
+        raise AssertionError("no PS_TPU_* group in the environment")
+    dev = multihost.process_device("cuda")
+    parts, meta, _ = dense_grid_scene(cfg)
+    state = state_from_numpy(parts, cfg.capacity).reshape(cfg.grid_shape)
+    pv = SimParams.from_record(meta).vector(dev)
+    mesh = multihost.global_mesh(n_shards, "cuda")
+    padded, rows = domain.pad_rows_for_mesh(state, mesh)
+    blocks = multihost.shard_state_global(padded, mesh)
+    pvs = [pv] * len(mesh.blocks)
+    fn = domain.make_sharded_frame_fn(cfg, mesh)
+    held = [hold_halo("dense scene as loaded", blocks, mesh, cfg, pvs)]
+    for counts in (bc.LAUNCHES, domain.EXCHANGE):
+        for k in counts:
+            counts[k] = 0
+    for i in range(MP_FRAMES):
+        blocks = fn(blocks, pvs, MP_STEPS)
+        if i == 0:
+            per_frame = {k: v for k, v in bc.LAUNCHES.items() if v}
+    torch.cuda.synchronize()
+    launches, ex = dict(bc.LAUNCHES), dict(domain.EXCHANGE)
+    n = max(1, ex["steps"])
+    held.append(hold_halo(f"dense scene after {MP_FRAMES} frames", blocks, mesh, cfg, pvs))
+    got = multihost.gather_global(blocks, mesh)
+    if got is not None:
+        torch.save({f: a[:rows].cpu() for f, a in zip(got._fields, got)},
+                   os.path.join(workdir, "rank0_grid.pt"))
+
+    def run(n):
+        nonlocal blocks
+        multihost.barrier(dev)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            blocks = fn(blocks, pvs, MP_STEPS)
+        torch.cuda.synchronize()
+        multihost.barrier(dev)
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    frame_ms = [run(MP_TIMED), run(MP_TIMED)]
+    _, busy = device_busy(lambda: run(2))
+    line = {"rank": dist.get_rank(), "world": dist.get_world_size(),
+            "backend": dist.get_backend(), "host_staged": domain.host_staged(dev),
+            "device": str(dev), "mesh": list(mesh.shape),
+            "shards": [list(ids) for _, ids in mesh.blocks],
+            "frames": MP_FRAMES, "steps_per_frame": MP_STEPS, "launches": launches,
+            "launches_per_frame": per_frame,
+            "exchange": {"messages": ex["messages"], "bytes": ex["bytes"], "steps": ex["steps"],
+                         "bytes_per_step": ex["bytes"] / n,
+                         "host_ms_per_step": ex["seconds"] * 1e3 / n,
+                         "stage_ms_per_step": ex["stage_s"] * 1e3 / n,
+                         "comm_ms_per_step": ex["comm_s"] * 1e3 / n},
+            "frame_ms": frame_ms,
+            "device_busy": None if busy is None else {
+                "busy_share": busy["busy_share"], "window_ms": busy["window_ms"]},
+            "held": held,
+            "foreign_modules": multihost.foreign_modules()}
+    print(json.dumps(line), flush=True)
+    dist.destroy_process_group()
+    return 1 if line["foreign_modules"] else 0
+
+
+def phase_multiprocess(cfg, workdir: str, world: int, n_shards: int, own_cards: bool,
+                       beside: dict):
+    """Phase 20: ``world`` processes over one global mesh of ``n_shards``
+    shards, sharing the first card over gloo (host-staged ring) or, with
+    ``own_cards``, a card each over NCCL. The dense scene's sharded frame
+    against ``run_frame_bucket_cuda`` computed here; then the 1024x1024
+    editor lattice served for ``MP_SERVE_FRAMES`` frames by ``world`` daemon
+    processes started through ``scripts/torch_launch_multihost.sh``, to the
+    unchanged headless editor. Every process holds the halo kernels against
+    their plain versions on its own blocks, as loaded and after its frames
+    (``hold_halo``; the daemons through ``--inspect``). ``beside`` is the
+    single-controller mesh's serve of the same lattice (``phase_slice``'s
+    line): its period is printed next to this one's, and its particle count
+    per frame must be this serve's."""
+    import torch
+
+    from particle_simulator_tpu_torch.engine.state import (
+        ParticleState,
+        SimParams,
+        state_from_numpy,
+    )
+    from particle_simulator_tpu_torch.io.transport import Disconnected, Reader
+    from particle_simulator_tpu_torch.ops.bucket_cuda import run_frame_bucket_cuda
+
+    backend = "nccl" if own_cards else "gloo"
+    here = os.path.dirname(os.path.abspath(__file__))
+    label = f"multi-process ({world} processes, {backend})"
+
+    # the sharded frame, bit for bit against one device
+    parts, meta, live = dense_grid_scene(cfg)
+    state = state_from_numpy(parts, cfg.capacity, "cuda").reshape(cfg.grid_shape)
+    pv = SimParams.from_record(meta).vector("cuda")
+    single = state
+    for _ in range(MP_FRAMES):
+        single = run_frame_bucket_cuda(single, pv, MP_STEPS, cfg.move_every)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MP_TIMED):
+        state = run_frame_bucket_cuda(state, pv, MP_STEPS, cfg.move_every)
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) * 1e3 / MP_TIMED
+    coord = f"file://{workdir}/frame_store"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--child-frame", workdir,
+         ",".join(map(str, cfg)), str(n_shards)],
+        env=multiprocess_env(world, r, coord, own_cards), cwd=here,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(world)]
+    lines = child_lines(_wait_all(procs, 300, label), label)
+    frame_s = time.perf_counter() - t0
+    check_processes(lines, backend=backend)
+    held = [h for line in lines for h in line["held"]]
+    got = torch.load(os.path.join(workdir, "rank0_grid.pt"))
+    identity = same_grid(ParticleState(*(got[f].to("cuda") for f in ParticleState._fields)),
+                         single, f"{label}: sharded frame")
+    if not bool(torch.isfinite(single.vx[single.ty >= 0]).all()):
+        raise AssertionError(f"{label}: non-finite velocities")
+    frame_line = {"grid": list(cfg.grid_shape), "particles": live, "frames_compared": MP_FRAMES,
+                  "steps_per_frame": MP_STEPS, **identity, "seconds": frame_s,
+                  "single_device_frame_ms": single_ms, "processes": lines}
+    print("multi-process frame: " + json.dumps(frame_line), flush=True)
+
+    # the serve, through the launcher
+    port = _free_port()
+    record = os.path.join(workdir, "mp_frames.bin")
+    editor_log = os.path.join(workdir, "mp_editor.log")
+    coord = f"127.0.0.1:{_free_port()}"
+    with open(editor_log, "w") as log:
+        editor = subprocess.Popen(
+            [sys.executable, "-m", "particle_simulator_tpu.editor.headless",
+             "--addr", f"127.0.0.1:{port}", "--lattice", "1024x1024",
+             "--distance-factor", "1.1", "--step-dt", "1e-14",
+             "--frames", str(MP_SERVE_FRAMES), "--timeout", "600"],
+            stdout=log, stderr=subprocess.STDOUT, cwd=here)
+        t0 = time.perf_counter()
+        daemons = [subprocess.Popen(
+            ["bash", os.path.join(here, "scripts", "torch_launch_multihost.sh"), coord,
+             str(world), str(r), "--addr", f"127.0.0.1:{port}",
+             "--max-frames", str(MP_SERVE_FRAMES), "--retry-s", "120", "--record", record,
+             "--inspect", "chip_smoke:hold_served", "--devices", str(n_shards)],
+            env=multiprocess_env(world, r, coord, own_cards), cwd=here,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(world)]
+        outs = _wait_all(daemons, 600, label)
+        stats = rank_stats_lines(outs, label)
+        held += inspect_lines(outs, label)
+        serve_s = time.perf_counter() - t0
+        rc = editor.wait(timeout=120)
+    if rc != 0:
+        with open(editor_log) as f:
+            raise AssertionError(f"{label}: editor exited {rc}:\n{f.read()[-4000:]}")
+    launches = check_processes(stats, backend=backend)
+    if any(s["shipped"] != MP_SERVE_FRAMES for s in stats):
+        raise AssertionError(f"{label}: shipped {[s['shipped'] for s in stats]} frames, "
+                             f"not {MP_SERVE_FRAMES} each")
+    counts = []
+    reader = Reader.open_file(record)
+    try:
+        for _ in range(MP_SERVE_FRAMES):
+            p = reader.read_blocking(timeout=120).particles
+            for name in ("vx", "vy"):
+                if not np.isfinite(p[name]).all():
+                    raise AssertionError(f"{label}: frame {len(counts)} has non-finite {name}")
+            counts.append(len(p))
+    except (Disconnected, TimeoutError):
+        pass
+    finally:
+        reader.close()
+    os.unlink(record)
+    if len(counts) != MP_SERVE_FRAMES or counts[0] != 1024 * 1024:
+        raise AssertionError(f"{label}: recorded {len(counts)} frames of {counts[:1]} particles")
+    if counts != beside["particles"][:MP_SERVE_FRAMES]:
+        raise AssertionError(f"{label}: particles a frame {counts}, the single-controller "
+                             f"mesh's {beside['particles']}")
+    err = held_errors(held)
+    serve_line = {"frames": MP_SERVE_FRAMES, "particles": counts, "serve_s": serve_s,
+                  "frame_period_ms": stats[0]["frame_period_ms"],
+                  "single_controller_mesh_period_ms": beside["frame_period_ms"],
+                  "launches": launches, "processes": stats}
+    print("multi-process slice: " + json.dumps(serve_line), flush=True)
+    print("multi-process held: " + json.dumps({"states": held, "max_abs_err_v": err}),
+          flush=True)
+    return {"frame": frame_line, "serve": serve_line, "launches": launches, "err": err}
+
+
 def kernel_entry(name, source, replaces, launches, max_abs_err, ms, plain_ms, bnd,
-                 library_ms, launches_scripts=0):
+                 library_ms, launches_scripts=0, launches_multiprocess=0):
     """One kernel of the kernels line. ``launches`` is the count of the
     served slice that runs the kernel; ``launches_scripts`` that of the
-    scene runner's and the config scripts' path (phases 15-19)."""
+    scene runner's and the config scripts' path (phases 15-19);
+    ``launches_multiprocess`` that of phase 20's two daemon processes,
+    summed."""
     return {"name": name, "route": "cuda", "source": f"{CSRC}/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": max_abs_err,
             "ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": library_ms,
-            "launches_scripts": launches_scripts}
+            "launches_scripts": launches_scripts,
+            "launches_multiprocess": launches_multiprocess}
 
 
 def main() -> int:
@@ -2078,13 +2469,14 @@ def main() -> int:
                for mode in ("compact", "nocompact", "off")}
         for mode in esl:
             phase_slice(device, "1024x1024", 8, workdir, profile=True, ext_io=mode)
+    # 20. two processes sharing the card: the (2, 2) global mesh, two shards each
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as workdir:
+        mp = phase_multiprocess(dense_cfg, workdir, world=2, n_shards=4, own_cards=False,
+                                beside=msl)
+    mp_err = mp["err"]
     if torch.cuda.device_count() > 1:
-        from particle_simulator_tpu_torch.parallel.domain import make_mesh
-
-        cards = make_mesh()
-        phase_sharded_frame(device, dense_cfg, frames=3, steps=100, timed=3, mesh=cards)
-        with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as workdir:
-            phase_slice(device, "1024x1024", 12, workdir, mesh=cards)
+        nccl_err = multi_card(device, dense_cfg)["err"]
+        mp_err = {k: max(v, nccl_err[k]) for k, v in mp_err.items()}
 
     # the scene runner's and the config scripts' path (phases 15-19); `hold`
     # compares every kernel with its plain version on each path's own states
@@ -2128,16 +2520,21 @@ def main() -> int:
     ]
     hms, hbnd = halo["dense"]["ms"], halo["dense"]["bounds"]
     herr = max(line["step_max_abs_err_v"] for line in halo.values())
+    mpl = mp["launches"]
     kernels += [
         kernel_entry("bucket_step_halo", "bucket_step.cu", STEP_HALO_KERNEL,
-                     msl["launches"]["step_halo"], herr, hms["step"], hms["step_plain"],
-                     hbnd["step"], None),
+                     msl["launches"]["step_halo"], max(herr, mp_err["step_halo"]), hms["step"],
+                     hms["step_plain"], hbnd["step"], None,
+                     launches_multiprocess=mpl["step_halo"]),
         kernel_entry("bucket_dest_halo", "bucket_dest.cu", DEST_HALO_KERNEL,
-                     msl["launches"]["dest_halo"], 0.0, hms["dest"], hms["dest_plain"],
-                     hbnd["dest"], None),
+                     msl["launches"]["dest_halo"], mp_err["dest_halo"], hms["dest"],
+                     hms["dest_plain"], hbnd["dest"], None,
+                     launches_multiprocess=mpl["dest_halo"]),
         kernel_entry("bucket_place_halo", "bucket_place.cu", PLACE_HALO_KERNEL,
-                     msl["launches"]["place_halo"], 0.0, hms["place"], hms["place_plain"],
-                     hbnd["place"], hms["place_library"]),
+                     msl["launches"]["place_halo"], mp_err["place_halo"], hms["place"],
+                     hms["place_plain"],
+                     hbnd["place"], hms["place_library"],
+                     launches_multiprocess=mpl["place_halo"]),
     ]
     ems, ebnd = ext["user"]["ms"], ext["user"]["bound"]
     eerr = max(line["max_abs_err_v"] for line in ext.values())
@@ -2161,5 +2558,30 @@ def main() -> int:
     return 0
 
 
+def multi_card(device, dense_cfg) -> dict:
+    """Phases 10, 11 and 20 over every card: the single-controller mesh's
+    sharded frame and serve, then one process a card over NCCL (whose
+    result it returns)."""
+    import torch
+
+    from particle_simulator_tpu_torch.ops import build
+    from particle_simulator_tpu_torch.parallel.domain import make_mesh
+
+    cards = make_mesh()
+    phase_sharded_frame(device, dense_cfg, frames=3, steps=100, timed=3, mesh=cards)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as workdir:
+        msl = phase_slice(device, "1024x1024", 12, workdir, mesh=cards)
+    n = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as workdir:
+        return phase_multiprocess(dense_cfg, workdir, world=n, n_shards=n, own_cards=True,
+                                  beside=msl)
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--child-frame"]:
+        from particle_simulator_tpu_torch.physics.bucket import GridConfig
+
+        workdir, grid, n_shards = sys.argv[2:5]
+        sys.exit(multiprocess_frame_child(workdir, GridConfig(*map(int, grid.split(","))),
+                                          int(n_shards)))
     sys.exit(main())

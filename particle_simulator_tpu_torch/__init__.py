@@ -12,6 +12,8 @@ CompactArray (the all-pairs step).
                readback.py                               : kernel wrappers, readback
   io/       <- io/frame.py, transport.py, presets.py,
                native.py                                 : the wire codec (a copy)
+  parallel/ <- parallel/domain.py, multihost.py          : the sharded grid, in one
+                                                           process or several
   scenes/   <- scenes/library.py                         : scene builders
   utils/    <- utils/profiling.py                        : StepMeter
 

@@ -39,6 +39,17 @@ and every frame runs the sharded frame (halo kernels on CUDA meshes, their
 plain versions on CPU meshes). The readback gathers the shards onto the
 mesh's first device and drops the pad rows, then packs as on one device.
 CompactArray runs unsharded on the requested device.
+
+With a mesh over several processes (``parallel/multihost.py:global_mesh``),
+the state is this process's blocks of the global mesh. Every process loads
+the same broadcast frame bytes, so every process picks the same grid. Only
+the sharded MatrixBuckets layout exists there: ``load_frame`` forces
+MatrixBuckets and the accelerator request (and says so, as the JAX engine
+does), and ``update_metadata`` ignores data-structure and device switches.
+The readback gathers the grid onto rank 0's device and packs it there; on
+the other processes a ticket holds nothing and ``read_frame`` returns a
+frame without particles. ``sync`` and ``live_count`` cover every process;
+like every frame, they are collectives.
 """
 
 from __future__ import annotations
@@ -57,7 +68,7 @@ from particle_simulator_tpu_torch.engine.state import (
     state_from_numpy,
     state_to_numpy,
 )
-from particle_simulator_tpu_torch.io.frame import DataStructure, Device, Frame
+from particle_simulator_tpu_torch.io.frame import PARTICLE_DTYPE, DataStructure, Device, Frame
 from particle_simulator_tpu_torch.ops.allpairs_cuda import run_frame_allpairs_cuda
 from particle_simulator_tpu_torch.ops.bucket_cuda import run_frame_bucket_cuda
 from particle_simulator_tpu_torch.ops.readback import (
@@ -65,9 +76,9 @@ from particle_simulator_tpu_torch.ops.readback import (
     dense_to_particles,
     pow2_at_least,
 )
+from particle_simulator_tpu_torch.parallel import multihost
 from particle_simulator_tpu_torch.parallel.domain import (
     DeviceMesh,
-    gather_state,
     make_sharded_frame_fn,
     pad_rows_for_mesh,
     shard_state,
@@ -85,7 +96,8 @@ class ReadbackTicket:
     ``scalars`` = ``[max_occupancy, total]`` and ``packed`` = the five
     device-packed fields, sized ``k``/``ncap``; for a CompactArray state,
     ``scalars`` is None and ``packed`` is the whole state. ``state`` is kept
-    for the widen-and-retry path."""
+    for the widen-and-retry path. On a process other than the frame owner
+    of a multi-process mesh every field is None."""
 
     __slots__ = ("state", "scalars", "packed", "k", "ncap", "event")
 
@@ -262,13 +274,27 @@ class Simulator:
             self._pvec = self.params.vector(self.run_device)
 
     # -- scene / metadata ingest ----------------------------------------------
+    @property
+    def multi_process(self) -> bool:
+        """Whether the mesh spans several processes."""
+        return self.mesh is not None and self.mesh.multi_process
+
     def load_frame(self, frame: Frame) -> None:
         """Full scene reset from a non-empty editor frame."""
         meta = frame.metadata
-        self.data_structure = meta.data_structure
-        self.requested_device = meta.device
-        self.run_device, self.active_device = self._target_device(meta.device)
         rec = meta.copy()
+        data_structure, requested = meta.data_structure, meta.device
+        if self.multi_process and (data_structure != DataStructure.MATRIX_BUCKETS
+                                   or requested != Device.GPU):
+            # only the global sharded layout exists over several processes;
+            # every process sees the same bytes, so all coerce alike
+            print("engine: multi-process run forces MatrixBuckets/accelerator "
+                  f"(requested {data_structure.name}/{requested.name})", file=sys.stderr)
+            data_structure, requested = DataStructure.MATRIX_BUCKETS, Device.GPU
+            rec["data_structure"] = int(data_structure)
+        self.data_structure = data_structure
+        self.requested_device = requested
+        self.run_device, self.active_device = self._target_device(requested)
         # echo the device actually running in outbound metadata
         rec["device"] = int(self.active_device)
 
@@ -336,6 +362,9 @@ class Simulator:
             requested_dev = Device(int(new["device"]))
         except ValueError:
             requested_ds, requested_dev = self.data_structure, self.requested_device
+        if self.multi_process:
+            # only the global sharded layout exists: ignore switch requests
+            requested_ds, requested_dev = self.data_structure, self.requested_device
         _, active_device = self._target_device(requested_dev)
         if requested_ds != self.data_structure or active_device != self.active_device:
             parts = state_to_numpy(self._grid_state())
@@ -388,22 +417,28 @@ class Simulator:
     def sync(self) -> None:
         """Block until every frame enqueued so far has run: the barrier a
         benchmark sets before it reads the clock. Waits on the state's card, on
-        every card of the mesh's blocks when sharded; CPU tensors, and a
-        simulator with no scene, have nothing in flight."""
+        every card of the mesh's blocks when sharded, and then for every other
+        process of a multi-process mesh to have done the same; CPU tensors,
+        and a simulator with no scene, have nothing in flight."""
         if self.state is None:
             return
         blocks = self.state if self.sharded else (self.state,)
         for dev in {b.x.device for b in blocks}:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
+        if self.multi_process:
+            multihost.barrier(blocks[0].x.device)
 
     # -- readback ----------------------------------------------------------------
-    def _grid_state(self) -> ParticleState:
+    def _grid_state(self) -> ParticleState | None:
         """The scene as one state: a sharded grid gathered onto the mesh's
-        first device, pad rows dropped."""
+        first device (over several processes, rank 0's; None on the
+        others), pad rows dropped."""
         if not self.sharded:
             return self.state
-        state = gather_state(self.state, self.mesh)
+        state = multihost.gather_global(self.state, self.mesh)
+        if state is None:
+            return None
         return ParticleState(*(a[:self.grid.by] for a in state))
 
     def start_readback(self, state: Optional[ParticleState] = None) -> ReadbackTicket:
@@ -411,6 +446,8 @@ class Simulator:
         one): the dense pack of a bucket grid, or a whole CompactArray
         state; ``read_frame`` consumes the ticket."""
         state = self._grid_state() if state is None else state
+        if state is None:  # not the frame owner: rank 0 holds the grid
+            return ReadbackTicket(None, None, None, None, None)
         if state.x.dim() == 1:
             scalars, packed, k, ncap = None, state, None, None
         else:
@@ -435,9 +472,13 @@ class Simulator:
         """The live particles of a ticket (or of ``state``, default the
         current one) as a wire frame stamped with ``meta`` (default: the
         current metadata). A CompactArray state ships its live slots in slot
-        order, as the JAX engine does."""
+        order, as the JAX engine does. A ticket of a process other than the
+        frame owner gives a frame without particles: the daemon counts it
+        like a shipped one, so every process leaves its loop together."""
         ticket = state if isinstance(state, ReadbackTicket) else self.start_readback(state)
         rec = self.meta_record if meta is None else meta
+        if ticket.state is None:
+            return Frame.from_particles(rec, np.zeros(0, PARTICLE_DTYPE), owned=True)
         if ticket.event is not None:
             ticket.event.synchronize()
         if ticket.scalars is None:
@@ -468,7 +509,12 @@ class Simulator:
 
     @property
     def live_count(self) -> int:
+        """Live particles of the scene, of every process's blocks over a
+        multi-process mesh (a collective there)."""
         if self.state is None:
             return 0
         blocks = self.state if self.sharded else (self.state,)
-        return sum(int((b.ty >= 0).sum()) for b in blocks)
+        count = sum(int((b.ty >= 0).sum()) for b in blocks)
+        if self.multi_process:
+            return multihost.all_sum(count, blocks[0].x.device)
+        return count

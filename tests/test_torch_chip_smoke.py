@@ -1,8 +1,9 @@
 """The CPU-side helpers of ``chip_smoke.py``: the SASS loop count that sets
 the arithmetic bounds, the bound arithmetic, the bucket-step pair counts,
 the place library calls, the device busy-share arithmetic, the ext step's
-bound and live-tile share and the readback check. The card's own
-phases run only on the card."""
+bound and live-tile share, the readback check and phase 20's child lines,
+launch check and grid identity. The card's own phases run only on the
+card."""
 
 import json
 
@@ -438,5 +439,164 @@ def test_kernel_entry_keeps_the_contract_keys():
                                     0.0, 0.2, 19.9, {"bound_ms": 0.1, "bound_by": "operations"},
                                     None, 337_500)
     assert set(entry) == {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-                          "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_scripts"}
+                          "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_scripts",
+                          "launches_multiprocess"}
     assert entry["launches"] == 1100 and entry["launches_scripts"] == 337_500
+    assert entry["launches_multiprocess"] == 0
+    halo = chip_smoke.kernel_entry("bucket_step_halo", "bucket_step.cu",
+                                   chip_smoke.STEP_HALO_KERNEL, 1800, 0.0, 0.2, 23.4,
+                                   {"bound_ms": 0.1, "bound_by": "operations"}, None,
+                                   launches_multiprocess=2600)
+    assert halo["launches_multiprocess"] == 2600 and halo["launches_scripts"] == 0
+
+
+# phase 20's pure helpers: the child lines, the launch check, the bit
+# identity of the gathered grid
+
+def _grid(seed=0):
+    from particle_simulator_tpu_torch.engine.state import ParticleState
+
+    rng = np.random.default_rng(seed)
+    ty = torch.from_numpy(rng.integers(-1, 2, (4, 4, 2)).astype(np.int32))
+    return ParticleState(torch.from_numpy(rng.integers(0, 2**31, (4, 4, 2)).astype(np.int32)),
+                         torch.from_numpy(rng.integers(0, 2**31, (4, 4, 2)).astype(np.int32)),
+                         torch.from_numpy(rng.normal(size=(4, 4, 2)).astype(np.float32)),
+                         torch.from_numpy(rng.normal(size=(4, 4, 2)).astype(np.float32)), ty)
+
+
+def test_same_grid_holds_live_slots_and_reports_all_slots():
+    ref = _grid()
+    assert chip_smoke.same_grid(ref, ref, "x") == {"bit_identical_live": True,
+                                                   "bit_identical_all_slots": True}
+    dead = ref.ty < 0
+    vx = ref.vx.clone()
+    vx[dead] += 1.0  # a tombstone's velocity differs: live slots still hold
+    assert chip_smoke.same_grid(ref._replace(vx=vx), ref, "x")["bit_identical_all_slots"] is False
+    vx = ref.vx.clone()
+    vx[~dead] = torch.nextafter(vx[~dead], torch.tensor(9.0))
+    with pytest.raises(AssertionError, match="live vx"):
+        chip_smoke.same_grid(ref._replace(vx=vx), ref, "x")
+    ty = ref.ty.clone()
+    ty[0, 0, 0] = 5
+    with pytest.raises(AssertionError, match="ty differs at 1 slots"):
+        chip_smoke.same_grid(ref._replace(ty=ty), ref, "x")
+
+
+def _line(rank, **launches):
+    base = {k: 0 for k in ("step", "dest", "place", "step_halo", "dest_halo", "place_halo",
+                           "step_ext", "step_compact", "allpairs")}
+    return {"rank": rank, "backend": "gloo", "launches": {**base, **launches},
+            "foreign_modules": []}
+
+
+def test_child_and_daemon_lines_parse_and_refuse():
+    good = _line(0, step_halo=3)
+    outs = [(0, "noise\n" + json.dumps(good) + "\n", ""), (0, json.dumps(_line(1)), "")]
+    assert chip_smoke.child_lines(outs, "t") == [good, _line(1)]
+    with pytest.raises(AssertionError, match="process 1 exited 3"):
+        chip_smoke.child_lines([outs[0], (3, "", "boom")], "t")
+    with pytest.raises(AssertionError, match="printed no line"):
+        chip_smoke.child_lines([(0, "  \n", "")], "t")
+    err = "engine: scene loaded\nengine: rank stats " + json.dumps(good) + "\nengine: bye\n"
+    assert chip_smoke.rank_stats_lines([(0, "", err)], "t") == [good]
+    with pytest.raises(AssertionError, match="daemon 0 exited 1"):
+        chip_smoke.rank_stats_lines([(1, "", err)], "t")
+    with pytest.raises(AssertionError, match="0 stats lines"):
+        chip_smoke.rank_stats_lines([(0, "", "engine: bye")], "t")
+
+
+def test_check_processes_sums_the_halo_path_and_refuses_the_rest():
+    halo = dict(step_halo=100, dest_halo=7, place_halo=7)
+    lines = [_line(0, **halo), _line(1, **halo)]
+    total = chip_smoke.check_processes(lines, backend="gloo")
+    assert {k: total[k] for k in halo} == {"step_halo": 200, "dest_halo": 14, "place_halo": 14}
+    with pytest.raises(AssertionError, match="never launched"):
+        chip_smoke.check_processes([_line(0, step_halo=100, dest_halo=7)])
+    with pytest.raises(AssertionError, match="another path"):
+        chip_smoke.check_processes([_line(0, **halo, step=1)])
+    with pytest.raises(AssertionError, match="ran over gloo, not nccl"):
+        chip_smoke.check_processes(lines, backend="nccl")
+    with pytest.raises(AssertionError, match="imported"):
+        chip_smoke.check_processes([{**_line(0, **halo), "foreign_modules": ["jax"]}])
+
+
+def test_multiprocess_env_puts_sharing_processes_on_the_first_card(monkeypatch):
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "3,1")
+    env = chip_smoke.multiprocess_env(2, 1, "127.0.0.1:9", own_cards=False)
+    assert (env["PS_TPU_COORDINATOR"], env["PS_TPU_NUM_PROCESSES"], env["PS_TPU_PROCESS_ID"]) == (
+        "127.0.0.1:9", "2", "1")
+    assert env["CUDA_VISIBLE_DEVICES"] == "3"  # both processes on the first card
+    assert chip_smoke.multiprocess_env(4, 0, "c", own_cards=True)["CUDA_VISIBLE_DEVICES"] == "3,1"
+
+
+def _halo_blocks():
+    """The stress scene's (16, 16, 16) grid as the blocks of a one-process
+    (2, 2) CPU mesh, with its grid config and params."""
+    from particle_simulator_tpu_torch.parallel import domain
+    from particle_simulator_tpu_torch.physics.bucket import GridConfig
+
+    state, pv = _soak_grid()
+    mesh = domain.make_mesh(devices=[torch.device("cpu")] * 4)
+    return domain.shard_state(state, mesh), mesh, GridConfig(4, 4, 16), [pv]
+
+
+def test_hold_halo_compares_each_halo_kernel_and_keeps_the_counts(monkeypatch):
+    """Phase 20's hold on a process's own blocks: the three halo kernels
+    against their plain versions (the plain versions on the CPU), the ring
+    filled by the mesh's exchange; the launch and exchange counts read
+    afterwards what they read before."""
+    from particle_simulator_tpu_torch.ops import bucket_cuda
+    from particle_simulator_tpu_torch.parallel import domain
+
+    blocks, mesh, cfg, pvs = _halo_blocks()
+    monkeypatch.setitem(bucket_cuda.LAUNCHES, "step_halo", 7)
+    monkeypatch.setitem(domain.EXCHANGE, "bytes", 5)
+    real = bucket_cuda.bucket_step_halo_cuda
+
+    def counting(padded, pv):  # as the wrapper does where it launches
+        bucket_cuda.LAUNCHES["step_halo"] += 1
+        return real(padded, pv)
+
+    monkeypatch.setattr(bucket_cuda, "bucket_step_halo_cuda", counting)
+    line = chip_smoke.hold_halo("loaded", blocks, mesh, cfg, pvs)
+    assert bucket_cuda.LAUNCHES["step_halo"] == 7 and domain.EXCHANGE["bytes"] == 5
+    assert line["max_abs_err"] == {"step_halo": 0.0, "dest_halo": 0.0, "place_halo": 0.0}
+    assert line["blocks"] == [[4, 10, 10, 16]] and line["migrating_in_from_ring"] > 0
+    assert line["live"] > 0 and line["at"] == "loaded"
+    assert chip_smoke.held_errors([line, {**line, "max_abs_err": {
+        "step_halo": 0.5, "dest_halo": 0.0, "place_halo": 0.0}}])["step_halo"] == 0.5
+    with pytest.raises(AssertionError, match="no halo hold"):
+        chip_smoke.held_errors([])
+
+
+@pytest.mark.parametrize("wrapper", ["bucket_step_halo_cuda", "move_dest_halo_cuda",
+                                     "bucket_place_halo_cuda"])
+def test_hold_halo_raises_on_a_difference(monkeypatch, wrapper):
+    """One slot off in one halo kernel's output is a failure, whichever."""
+    from particle_simulator_tpu_torch.ops import bucket_cuda
+
+    blocks, mesh, cfg, pvs = _halo_blocks()
+    real = getattr(bucket_cuda, wrapper)
+
+    def off_by_one(*args):
+        out = real(*args)
+        if wrapper == "move_dest_halo_cuda":
+            out = out.clone()
+            out[0, 1, 1, 0] += 1
+            return out
+        x = out.x.clone()
+        x[0, 3, 3, 0] += 1
+        return out._replace(x=x)
+
+    monkeypatch.setattr(bucket_cuda, wrapper, off_by_one)
+    with pytest.raises(AssertionError, match="differ"):
+        chip_smoke.hold_halo("loaded", blocks, mesh, cfg, pvs)
+
+
+def test_inspect_lines_want_two_holds_a_daemon():
+    held = {"at": "as loaded", "max_abs_err": dict.fromkeys(chip_smoke.HALO_KERNELS, 0.0)}
+    err = "".join(f"engine: inspect {json.dumps({**held, 'n': i})}\n" for i in range(2))
+    got = chip_smoke.inspect_lines([(0, "", "engine: x\n" + err), (0, "", err)], "t")
+    assert [h["n"] for h in got] == [0, 1, 0, 1]
+    with pytest.raises(AssertionError, match="daemon 1 held its blocks 1 times"):
+        chip_smoke.inspect_lines([(0, "", err), (0, "", err.splitlines()[0])], "t")
