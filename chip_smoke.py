@@ -25,7 +25,8 @@ exits non-zero without printing a result):
    (``STEP_DEST_GEOMETRIES``: caps 6, 8, 12, 64, sides no sub-tile divides,
    stacks of 1 to 4 shards, moves that drop particles) against their plain
    versions, bit for bit;
-4. slice: the unchanged headless editor (a subprocess) sends a 1024x1024
+4. slice: the port's headless editor (a subprocess,
+   ``particle_simulator_tpu_torch.editor.headless``) sends a 1024x1024
    lattice (1,048,576 particles) over TCP and the port's ``serve`` ships 6
    frames back through the bucket kernels; every frame must be finite and
    every kernel launched;
@@ -57,7 +58,7 @@ exits non-zero without printing a result):
     frame of each, and the device's busy share over two frames of each
     (``torch.profiler``);
 11. mesh slice: the 1024x1024 editor lattice served through
-    ``Simulator(mesh=make_mesh(devices=[cuda:0] * 4))`` to the unchanged
+    ``Simulator(mesh=make_mesh(devices=[cuda:0] * 4))`` to the port's
     headless editor: frame period median and p90 at the daemon's wire
     writes, every halo kernel launched and no single-device bucket kernel;
     the same serve on one device for comparison; then the device's busy
@@ -126,13 +127,31 @@ exits non-zero without printing a result):
     chip_smoke.py --child-frame ...``), rank 0's gathered grid bit-identical
     to ``run_frame_bucket_cuda`` computed here, then frames on the clock and
     under the profiler in each process; then the 1024x1024 editor lattice
-    served for 12 frames to the unchanged headless editor by two daemon
+    served for 12 frames to the port's headless editor by two daemon
     processes started through ``scripts/torch_launch_multihost.sh ...
     --devices 4``: every frame finite, the echo 1,048,576 particles, the
     frame period at process 0's wire writes beside phase 11's. Every
     process reports its launches (the halo kernels and no other), its
     backend and device, its ring bytes and host time a step (and of it the
-    staging and the sends' waits), and the jax modules it imported (none).
+    staging and the sends' waits), and the jax modules it imported (none);
+21. config 5 (``scripts/torch_interactive_1m_chip.py``'s ``record``): the
+    port's web editor and daemon as processes of their own, a 1024x1024
+    lattice drawn through the HTTP surface (1,048,576 particles, dt = 10 fs,
+    100 steps a frame, the 1024x1024x16 user-scene grid), served to the web
+    editor for ``CONFIG5_SECONDS`` under a sustained ``/frame.bin`` fetch:
+    at least 0.9 x 1,048,576 particles, engine fps above 0, no fetch error;
+    the daemon tees every frame into a FIFO that this script reads, and
+    every frame must be finite; through the daemon's ``--inspect``, the
+    step, dest and place held bit for bit against their plain versions on
+    the served grid as loaded and after the last frame (``hold_grid``),
+    whose line also carries the daemon's launches: each of the three
+    launched, no other kernel.
+
+Every child process (the headless editors of phases 4, 11, 14 and 20, the
+web editor and the daemons of phase 21) prints the modules of jax or of the
+JAX package it imported as it exits (``utils/log.py:report_foreign_modules``;
+phase 20's processes in their JSON lines): the run fails on any, or on a
+child that printed no such line.
 
 Phases 15-19 also hold every kernel they launch against its plain version,
 bit for bit, on their own states (``KernelHold``): each config's, each sweep
@@ -150,7 +169,8 @@ line and the result line. In the kernels line ``launches`` is the count of
 the served slice that runs the kernel, ``launches_scripts`` that of
 phases 15-19, each counted from 0 around its own run, and
 ``launches_multiprocess`` that of phase 20's two daemon processes (each
-counts from its start), summed. It exits non-zero when
+counts from its start), summed, and ``launches_config5`` that of phase 21's
+daemon. It exits non-zero when
 ``torch.cuda.is_available()`` is false.
 """
 
@@ -815,7 +835,7 @@ SLICE_PATHS = {"off": ("bucket", ("step", "dest", "place")),
 
 def phase_slice(device, lattice: str, frames: int, workdir: str, mesh=None,
                 profile: bool = False, ext_io: str = "off"):
-    """Phases 4, 11 and 14: the unchanged headless editor against the port's
+    """Phases 4, 11 and 14: the port's headless editor against the port's
     daemon, on one device or sharded over ``mesh``, with ``PS_EXT_IO`` set
     to ``ext_io``; with ``profile``, the device's busy share over the
     serve."""
@@ -827,7 +847,7 @@ def phase_slice(device, lattice: str, frames: int, workdir: str, mesh=None,
     port = _free_port()
     record = os.path.join(workdir, "slice_frames.bin")
     editor_log = os.path.join(workdir, "editor.log")
-    cmd = [sys.executable, "-m", "particle_simulator_tpu.editor.headless",
+    cmd = [sys.executable, "-m", "particle_simulator_tpu_torch.editor.headless",
            "--addr", f"127.0.0.1:{port}", "--lattice", lattice,
            "--distance-factor", "1.1", "--step-dt", "1e-14",
            "--frames", str(frames), "--timeout", "600"]
@@ -855,9 +875,11 @@ def phase_slice(device, lattice: str, frames: int, workdir: str, mesh=None,
             if editor.poll() is None:
                 editor.kill()
                 editor.wait()
+    with open(editor_log) as f:
+        log_text = f.read()
     if rc != 0:
-        with open(editor_log) as f:
-            raise AssertionError(f"editor exited {rc}:\n{f.read()[-4000:]}")
+        raise AssertionError(f"editor exited {rc}:\n{log_text[-4000:]}")
+    child_modules(log_text, "editor", "the headless editor")
     if shipped != frames:
         raise AssertionError(f"daemon shipped {shipped} of {frames} frames")
     runner, path = ("sharded", HALO_KERNELS) if mesh is not None else SLICE_PATHS[ext_io]
@@ -2274,7 +2296,7 @@ def phase_multiprocess(cfg, workdir: str, world: int, n_shards: int, own_cards: 
     against ``run_frame_bucket_cuda`` computed here; then the 1024x1024
     editor lattice served for ``MP_SERVE_FRAMES`` frames by ``world`` daemon
     processes started through ``scripts/torch_launch_multihost.sh``, to the
-    unchanged headless editor. Every process holds the halo kernels against
+    port's headless editor. Every process holds the halo kernels against
     their plain versions on its own blocks, as loaded and after its frames
     (``hold_halo``; the daemons through ``--inspect``). ``beside`` is the
     single-controller mesh's serve of the same lattice (``phase_slice``'s
@@ -2335,7 +2357,7 @@ def phase_multiprocess(cfg, workdir: str, world: int, n_shards: int, own_cards: 
     coord = f"127.0.0.1:{_free_port()}"
     with open(editor_log, "w") as log:
         editor = subprocess.Popen(
-            [sys.executable, "-m", "particle_simulator_tpu.editor.headless",
+            [sys.executable, "-m", "particle_simulator_tpu_torch.editor.headless",
              "--addr", f"127.0.0.1:{port}", "--lattice", "1024x1024",
              "--distance-factor", "1.1", "--step-dt", "1e-14",
              "--frames", str(MP_SERVE_FRAMES), "--timeout", "600"],
@@ -2353,9 +2375,11 @@ def phase_multiprocess(cfg, workdir: str, world: int, n_shards: int, own_cards: 
         held += inspect_lines(outs, label)
         serve_s = time.perf_counter() - t0
         rc = editor.wait(timeout=120)
+    with open(editor_log) as f:
+        log_text = f.read()
     if rc != 0:
-        with open(editor_log) as f:
-            raise AssertionError(f"{label}: editor exited {rc}:\n{f.read()[-4000:]}")
+        raise AssertionError(f"{label}: editor exited {rc}:\n{log_text[-4000:]}")
+    child_modules(log_text, "editor", f"{label}: the headless editor")
     launches = check_processes(stats, backend=backend)
     if any(s["shipped"] != MP_SERVE_FRAMES for s in stats):
         raise AssertionError(f"{label}: shipped {[s['shipped'] for s in stats]} frames, "
@@ -2390,18 +2414,222 @@ def phase_multiprocess(cfg, workdir: str, world: int, n_shards: int, own_cards: 
     return {"frame": frame_line, "serve": serve_line, "launches": launches, "err": err}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: config 5, the web editor and the daemon as processes of their own
+# (scripts/torch_interactive_1m_chip.py)
+# ---------------------------------------------------------------------------
+
+# the measurement window (the web editor keeps every frame, ~21 MB at 1M)
+CONFIG5_SECONDS = 12.0
+CONFIG5_PATH = ("step", "dest", "place")
+
+
+def child_modules(text: str, who: str, label: str) -> list:
+    """The ``<who>: foreign modules [...]`` line a child process printed as
+    it exited (``utils/log.py:report_foreign_modules``) -> its list; raises
+    unless there is exactly one such line and it names no module."""
+    from particle_simulator_tpu_torch.utils.log import FOREIGN_MODULES_TAG
+
+    tag = f"{who}: {FOREIGN_MODULES_TAG}"
+    found = [json.loads(ln[len(tag):]) for ln in text.splitlines() if ln.startswith(tag)]
+    if len(found) != 1:
+        raise AssertionError(f"{label} printed {len(found)} '{tag.strip()}' lines, not "
+                             f"one:\n{text[-2000:]}")
+    if found[0]:
+        raise AssertionError(f"{label} imported {found[0]}")
+    return found[0]
+
+
+class FrameCheck:
+    """Reads a wire stream from a FIFO in a thread of its own (phase 21's
+    daemon tees every frame it ships into it, ``--record``) and keeps only
+    counts: the frames, the fewest and most particles in one, and the
+    indices of the frames with a non-finite velocity."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self.frames = 0
+        self.particles = [None, None]
+        self.nonfinite = []
+        self.error = None
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    @staticmethod
+    def _fill(f, view) -> bool:
+        got = 0
+        while got < len(view):
+            n = f.readinto(view[got:])
+            if not n:
+                return False
+            got += n
+        return True
+
+    def _run(self) -> None:
+        from particle_simulator_tpu_torch.io.frame import (
+            HEADER_DTYPE,
+            HEADER_SIZE,
+            PARTICLE_DTYPE,
+            PARTICLE_SIZE,
+            SIGNATURE_START,
+        )
+
+        try:
+            with open(self.path, "rb", buffering=0) as f:
+                header, body = bytearray(HEADER_SIZE), bytearray()
+                while self._fill(f, memoryview(header)):
+                    hdr = np.frombuffer(header, HEADER_DTYPE, 1)[0]
+                    if hdr["signature_start"].tobytes() != SIGNATURE_START:
+                        raise ValueError(f"frame {self.frames}: bad signature")
+                    n = int(hdr["particle_count"])
+                    if len(body) < n * PARTICLE_SIZE:
+                        body = bytearray(n * PARTICLE_SIZE)
+                    if not self._fill(f, memoryview(body)[:n * PARTICLE_SIZE]):
+                        raise ValueError(f"frame {self.frames}: the stream ended mid-frame")
+                    parts = np.frombuffer(body, PARTICLE_DTYPE, n)
+                    if not (np.isfinite(parts["vx"]).all() and np.isfinite(parts["vy"]).all()):
+                        self.nonfinite.append(self.frames)
+                    lo, hi = self.particles
+                    self.particles = [n if lo is None else min(lo, n),
+                                      n if hi is None else max(hi, n)]
+                    self.frames += 1
+        except Exception as e:  # reported through finish()
+            self.error = repr(e)
+
+    def finish(self, timeout: float) -> None:
+        """Wait for the end of the stream; a writer that never came is
+        stood in for by an empty one, so the reader's open returns."""
+        self._thread.join(timeout)
+        if self._thread.is_alive():
+            try:
+                os.close(os.open(self.path, os.O_WRONLY | os.O_NONBLOCK))
+            except OSError:
+                pass
+            self._thread.join(timeout)
+        if self._thread.is_alive():
+            self.error = self.error or "the FIFO reader never finished"
+
+
+def hold_grid(label: str, sim) -> dict:
+    """``KernelHold`` on a daemon's own one-device bucket grid (its
+    ``--inspect`` hook; phase 21): the step, the dest and the place against
+    their plain versions, bit for bit, on the served state. The line also
+    carries the daemon's launches so far (the hold's own are taken out
+    again), whether every live velocity is finite and each kernel's largest
+    live-velocity difference."""
+    import torch
+
+    from particle_simulator_tpu_torch.ops import allpairs_cuda, bucket_cuda as bc
+
+    if sim.sharded or sim.state.x.dim() != 3:
+        raise AssertionError(f"{label}: the served scene is not one bucket grid")
+    launches = {**bc.LAUNCHES, **allpairs_cuda.LAUNCHES}
+    hold = KernelHold()
+    hold(label, sim.state, sim._pvec)
+    alive = sim.state.ty >= 0
+    finite = bool(torch.isfinite(sim.state.vx[alive]).all()
+                  and torch.isfinite(sim.state.vy[alive]).all())
+    return {**hold.held[0], "launches": launches, "finite": finite,
+            "max_abs_err": {k: hold.err[k] for k in CONFIG5_PATH}}
+
+
+def config5_checks(rec: dict, check: FrameCheck, held: list, shipped: int,
+                   drawn: int, path=CONFIG5_PATH) -> dict:
+    """Phase 21's checks on the script's result line, the FIFO's counts, the two
+    ``hold_grid`` lines and the frames the daemon says it shipped, for a
+    lattice of ``drawn`` particles served through the kernels of ``path``
+    (none on the CPU); returns the daemon's launches and each kernel's
+    largest error."""
+    if rec["particles"] < 0.9 * drawn:
+        raise AssertionError(f"config 5: {rec['particles']} particles, fewer than 0.9 x "
+                             f"{drawn}")
+    if not rec["engine_fps"] > 0:
+        raise AssertionError(f"config 5: engine fps {rec['engine_fps']}")
+    if rec["fetch_errors"]:
+        raise AssertionError(f"config 5: {rec['fetch_errors']} /frame.bin fetches failed")
+    if check.error is not None:
+        raise AssertionError(f"config 5: the frame check failed: {check.error}")
+    # every frame on the wire went through the FIFO first; frames the daemon
+    # counted after the editor's disconnect never reached either
+    if not rec["engine_frames"] <= check.frames <= shipped or check.frames == 0:
+        raise AssertionError(f"config 5: the FIFO carried {check.frames} frames, the editor "
+                             f"saw {rec['engine_frames']} in its window, the daemon counted "
+                             f"{shipped}")
+    if check.nonfinite:
+        raise AssertionError(f"config 5: frames {check.nonfinite[:10]} are not finite")
+    if check.particles[0] < 0.9 * drawn:
+        raise AssertionError(f"config 5: a frame held {check.particles[0]} particles")
+    if len(held) != 2 or not all(h["finite"] for h in held):
+        raise AssertionError(f"config 5: the served grid was held {len(held)} times, finite "
+                             f"{[h['finite'] for h in held]}")
+    launches = held[-1]["launches"]
+    if any(launches.get(k, 0) == 0 for k in path):
+        raise AssertionError(f"config 5: a kernel of the path never launched: {launches}")
+    if any(v for k, v in launches.items() if k not in path):
+        raise AssertionError(f"config 5: a kernel of another path launched: {launches}")
+    err = {k: max(h["max_abs_err"][k] for h in held) for k in CONFIG5_PATH}
+    return {"launches": launches, "err": err}
+
+
+def phase_config5(workdir: str, seconds: float = CONFIG5_SECONDS, n_side: int = 1024,
+                  steps_per_frame: int = 100, torch_device: str = "cuda") -> dict:
+    """Phase 21: ``scripts/torch_interactive_1m_chip.py``'s ``record`` for
+    ``seconds`` (on the card unless ``torch_device`` says otherwise, as the
+    CPU tests do at a small ``n_side``), the daemon holding rows 1-3 on its
+    grid through ``--inspect chip_smoke:hold_grid`` and teeing its frames
+    into a FIFO read by ``FrameCheck``; both children's module reports
+    checked."""
+    drv = script_module("torch_interactive_1m_chip")
+    fifo = os.path.join(workdir, "config5_frames.fifo")
+    os.mkfifo(fifo)
+    check = FrameCheck(fifo)
+    events = []
+
+    def emit(ev):
+        events.append(ev)
+        print("config 5 event: " + json.dumps(ev), flush=True)
+
+    t0 = time.perf_counter()
+    try:
+        rec = drv.record(seconds=seconds, n_side=n_side, steps_per_frame=steps_per_frame,
+                         torch_device=torch_device, inspect="chip_smoke:hold_grid",
+                         daemon_record=fifo, log_dir=workdir, emit=emit)
+    finally:
+        check.finish(60)
+    phase_s = time.perf_counter() - t0
+    print("config 5: " + json.dumps(rec), flush=True)
+    with open(os.path.join(workdir, "daemon.log")) as f:
+        daemon_log = f.read()
+    with open(os.path.join(workdir, "webview.log")) as f:
+        web_log = f.read()
+    child_modules(daemon_log, "engine", "config 5: the daemon")
+    child_modules(web_log, "editor UI", "config 5: the web editor")
+    found = re.findall(r"^engine: disconnected after (\d+) frames", daemon_log, re.M)
+    shipped = int(found[-1]) if found else 0
+    held = inspect_lines([(0, "", daemon_log)], "config 5")
+    verdict = config5_checks(rec, check, held, shipped, n_side * n_side,
+                             CONFIG5_PATH if torch_device == "cuda" else ())
+    print("config 5 held: " + json.dumps(
+        {"shipped": shipped, "fifo_frames": check.frames, "particles_min_max": check.particles,
+         "nonfinite_frames": check.nonfinite, "states": held, "launches": verdict["launches"],
+         "max_abs_err_v": verdict["err"], "phase_s": phase_s}), flush=True)
+    return verdict
+
+
 def kernel_entry(name, source, replaces, launches, max_abs_err, ms, plain_ms, bnd,
-                 library_ms, launches_scripts=0, launches_multiprocess=0):
+                 library_ms, launches_scripts=0, launches_multiprocess=0,
+                 launches_config5=0):
     """One kernel of the kernels line. ``launches`` is the count of the
     served slice that runs the kernel; ``launches_scripts`` that of the
     scene runner's and the config scripts' path (phases 15-19);
     ``launches_multiprocess`` that of phase 20's two daemon processes,
-    summed."""
+    summed; ``launches_config5`` that of phase 21's daemon."""
     return {"name": name, "route": "cuda", "source": f"{CSRC}/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": max_abs_err,
             "ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": library_ms,
             "launches_scripts": launches_scripts,
-            "launches_multiprocess": launches_multiprocess}
+            "launches_multiprocess": launches_multiprocess,
+            "launches_config5": launches_config5}
 
 
 def main() -> int:
@@ -2496,6 +2724,11 @@ def main() -> int:
     print("held on the scripts' states: " + json.dumps(
         {"states": hold.held, "max_abs_err_v": hold.err}), flush=True)
 
+    # 21. config 5: the web editor and the daemon, each a process of its own
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as workdir:
+        c5 = phase_config5(workdir)
+    c5l, c5err = c5["launches"], c5["err"]
+
     if "jax" in sys.modules or any(m.split(".")[0] == "particle_simulator_tpu"
                                    for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
@@ -2505,14 +2738,15 @@ def main() -> int:
     ap_err = max(line["max_abs_err_v"] for line in ap.values())
     kernels = [
         kernel_entry("bucket_step", "bucket_step.cu", STEP_KERNEL, sl["launches"]["step"],
-                     max(err, hold.err["step"]), ms["step"], ms["step_plain"], bnd["step"], None,
-                     scripted["step"]),
+                     max(err, hold.err["step"], c5err["step"]), ms["step"], ms["step_plain"],
+                     bnd["step"], None, scripted["step"], launches_config5=c5l["step"]),
         kernel_entry("bucket_dest", "bucket_dest.cu", DEST_KERNEL, sl["launches"]["dest"],
-                     hold.err["dest"], ms["dest"], ms["dest_plain"], bnd["dest"], None,
-                     scripted["dest"]),
+                     max(hold.err["dest"], c5err["dest"]), ms["dest"], ms["dest_plain"],
+                     bnd["dest"], None, scripted["dest"], launches_config5=c5l["dest"]),
         kernel_entry("bucket_place", "bucket_place.cu", PLACE_KERNEL, sl["launches"]["place"],
-                     hold.err["place"], ms["place"], ms["place_plain"], bnd["place"],
-                     ms["place_library"], scripted["place"]),
+                     max(hold.err["place"], c5err["place"]), ms["place"], ms["place_plain"],
+                     bnd["place"], ms["place_library"], scripted["place"],
+                     launches_config5=c5l["place"]),
         kernel_entry("allpairs_step", "allpairs_step.cu", ALLPAIRS_KERNEL,
                      cs["launches"]["allpairs"], max(ap_err, hold.err["allpairs"]),
                      gas["ms"]["kernel"],

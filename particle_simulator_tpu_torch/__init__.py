@@ -14,14 +14,16 @@ CompactArray (the all-pairs step).
                native.py                                 : the wire codec (a copy)
   parallel/ <- parallel/domain.py, multihost.py          : the sharded grid, in one
                                                            process or several
-  scenes/   <- scenes/library.py                         : scene builders
-  utils/    <- utils/profiling.py                        : StepMeter
+  scenes/   <- scenes/library.py, order.py               : scene builders, order
+  editor/   <- editor/*.py                               : the editor (headless, web),
+                                                           numpy only (a copy)
+  utils/    <- utils/profiling.py, log.py, numfmt.py ... : StepMeter, logging, numbers
 
 Positions are ``torch.int32`` tensors holding the u32 fixed-point bit
 patterns: torch's CPU ``uint32`` has no add, shift or compare, while int32
 add/sub wrap exactly like u32 and the kernels reinterpret the bits. Nothing
 here imports jax or the JAX package: the frozen wire codec is the port's own
-copy in ``io/``.
+copy in ``io/``, the editor its own copy in ``editor/``.
 """
 
 __version__ = "0.2.0"

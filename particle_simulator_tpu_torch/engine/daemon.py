@@ -22,7 +22,8 @@ counts the shards of the global mesh (a multiple of the world size; ``all``
 is one a process), only process 0 connects to the editor, and a
 ``DistributedFrontend`` broadcasts what it reads, so every process loads,
 steps and reads back in the same order. Each process prints a ``rank
-stats`` JSON line when it stops.
+stats`` JSON line when it stops. Every run ends with an ``engine: foreign
+modules [...]`` line on stderr (``utils/log.py:report_foreign_modules``).
 
 Run:  python -m particle_simulator_tpu_torch.engine.daemon [--addr HOST:PORT]
 """
@@ -53,13 +54,14 @@ from particle_simulator_tpu_torch.engine.simulator import Simulator
 from particle_simulator_tpu_torch.ops import allpairs_cuda, bucket_cuda
 from particle_simulator_tpu_torch.parallel import domain, multihost
 from particle_simulator_tpu_torch.parallel.domain import make_mesh
+from particle_simulator_tpu_torch.utils.log import report_foreign_modules
 from particle_simulator_tpu_torch.utils.profiling import StepMeter
 
 
 class Frontend:
     """Connection glue: newest-wins reads, compacted writes, an optional
     tee of every outbound frame to a file (replayable with
-    ``particle_simulator_tpu.editor.headless --replay``)."""
+    ``particle_simulator_tpu_torch.editor.headless --replay``)."""
 
     def __init__(self, reader: Reader, writer: Writer, verbose: bool = True,
                  record: Writer | None = None):
@@ -471,7 +473,7 @@ def main(argv=None) -> int:
                     help="keep retrying the connection this long")
     ap.add_argument("--record", default=None,
                     help="tee every outbound frame to this file (replayable "
-                         "with particle_simulator_tpu.editor.headless --replay)")
+                         "with particle_simulator_tpu_torch.editor.headless --replay)")
     ap.add_argument("--readback-pipeline", type=int, default=1,
                     help="frames of device->host readback pipelining (0 = "
                          "ship frame k while frame k+1 computes)")
@@ -507,6 +509,7 @@ def main(argv=None) -> int:
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+        report_foreign_modules("engine")
 
 
 def _run(args, hook) -> int:

@@ -165,6 +165,10 @@ class SimParams(NamedTuple):
         meta["box_height"] = self.box_height
         return meta
 
+    def no_cursor(self) -> "SimParams":
+        """These params with the cursor off (at (-1, -1))."""
+        return self._replace(cursor_x=np.float32(-1.0), cursor_y=np.float32(-1.0))
+
 
 def from_reference(fields, meta_record: np.ndarray, device="cpu"):
     """The five numpy arrays of a JAX ``ParticleState`` (x, y as uint32) and

@@ -36,7 +36,6 @@ from __future__ import annotations
 import datetime
 import os
 import socket
-import sys
 
 import torch
 import torch.distributed as dist
@@ -51,6 +50,7 @@ from particle_simulator_tpu_torch.parallel.domain import (
     shard_state,
     to_host,
 )
+from particle_simulator_tpu_torch.utils.log import foreign_modules  # noqa: F401
 
 # A lost peer fails the collective that waits on it after this long rather
 # than hanging the process.
@@ -244,8 +244,3 @@ def gather_global(blocks, mesh: DeviceMesh) -> ParticleState | None:
     return gather_state(every, mesh)
 
 
-def foreign_modules() -> list[str]:
-    """The modules of ``jax`` or of the JAX package this process has
-    imported: none, since the port stands alone."""
-    return sorted(m for m in sys.modules
-                  if m.split(".")[0] in ("jax", "jaxlib", "particle_simulator_tpu"))

@@ -1,1 +1,2 @@
-"""Utilities: the throughput meter."""
+"""Utilities: the throughput meter and profiling helpers, logging, the
+precision helpers and the web editor's number formats (``numfmt``)."""

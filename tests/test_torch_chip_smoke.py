@@ -1,11 +1,13 @@
 """The CPU-side helpers of ``chip_smoke.py``: the SASS loop count that sets
 the arithmetic bounds, the bound arithmetic, the bucket-step pair counts,
 the place library calls, the device busy-share arithmetic, the ext step's
-bound and live-tile share, the readback check and phase 20's child lines,
-launch check and grid identity. The card's own phases run only on the
-card."""
+bound and live-tile share, the readback check, phase 20's child lines,
+launch check and grid identity, and phase 21's module reports, FIFO frame
+check, served-grid hold and checks (the whole phase once, on the CPU at a
+small size). The card's own phases run only on the card."""
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -440,9 +442,9 @@ def test_kernel_entry_keeps_the_contract_keys():
                                     None, 337_500)
     assert set(entry) == {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                           "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_scripts",
-                          "launches_multiprocess"}
+                          "launches_multiprocess", "launches_config5"}
     assert entry["launches"] == 1100 and entry["launches_scripts"] == 337_500
-    assert entry["launches_multiprocess"] == 0
+    assert entry["launches_multiprocess"] == 0 and entry["launches_config5"] == 0
     halo = chip_smoke.kernel_entry("bucket_step_halo", "bucket_step.cu",
                                    chip_smoke.STEP_HALO_KERNEL, 1800, 0.0, 0.2, 23.4,
                                    {"bound_ms": 0.1, "bound_by": "operations"}, None,
@@ -600,3 +602,159 @@ def test_inspect_lines_want_two_holds_a_daemon():
     assert [h["n"] for h in got] == [0, 1, 0, 1]
     with pytest.raises(AssertionError, match="daemon 1 held its blocks 1 times"):
         chip_smoke.inspect_lines([(0, "", err), (0, "", err.splitlines()[0])], "t")
+
+
+# phase 21: config 5's children, frames and served grid
+
+def test_child_modules_wants_one_empty_report():
+    from particle_simulator_tpu_torch.utils.log import FOREIGN_MODULES_TAG
+
+    line = f"engine: {FOREIGN_MODULES_TAG}"
+    assert chip_smoke.child_modules(f"x\n{line}[]\n", "engine", "t") == []
+    with pytest.raises(AssertionError, match="imported"):
+        chip_smoke.child_modules(f'{line}["jax", "jax.numpy"]\n', "engine", "t")
+    with pytest.raises(AssertionError, match="printed 0"):
+        chip_smoke.child_modules("engine: disconnected after 3 frames\n", "engine", "t")
+    with pytest.raises(AssertionError, match="printed 2"):
+        chip_smoke.child_modules(f"{line}[]\n{line}[]\n", "engine", "t")
+    with pytest.raises(AssertionError, match="printed 0"):
+        chip_smoke.child_modules(f"{line}[]\n", "editor UI", "t")
+
+
+def _wire_frames(counts, nan_at=()):
+    from particle_simulator_tpu_torch.io.frame import Frame
+
+    frames = []
+    for i, n in enumerate(counts):
+        f = Frame.new()
+        parts = np.zeros(n, dtype=f.particles.dtype)
+        parts["vx"] = np.arange(n, dtype=np.float32)
+        if i in nan_at:
+            parts["vy"][n // 2] = np.nan
+        f.extend(parts)
+        frames.append(f)
+    return frames
+
+
+def test_frame_check_counts_frames_particles_and_non_finite(tmp_path):
+    from particle_simulator_tpu_torch.io.transport import Writer
+
+    fifo = str(tmp_path / "frames.fifo")
+    os.mkfifo(fifo)
+    check = chip_smoke.FrameCheck(fifo)
+    writer = Writer.open_file(fifo)
+    for f in _wire_frames([5, 300, 0, 17], nan_at=(1,)):
+        assert writer.write(f)
+    writer.close()
+    check.finish(30)
+    assert (check.frames, check.particles, check.nonfinite, check.error) == (
+        4, [0, 300], [1], None)
+
+
+def test_frame_check_reports_a_cut_stream_and_a_missing_writer(tmp_path):
+    from particle_simulator_tpu_torch.io.frame import HEADER_SIZE
+
+    fifo = str(tmp_path / "frames.fifo")
+    os.mkfifo(fifo)
+    check = chip_smoke.FrameCheck(fifo)
+    raw = _wire_frames([10])[0].bytes
+    with open(fifo, "wb") as f:
+        f.write(raw[:HEADER_SIZE + 30])
+    check.finish(30)
+    assert check.frames == 0 and "mid-frame" in check.error
+    os.unlink(fifo)
+    os.mkfifo(fifo)
+    idle = chip_smoke.FrameCheck(fifo)  # no writer ever opens it
+    idle.finish(1)
+    assert idle.frames == 0 and idle.error is None
+
+
+def _served_sim():
+    from particle_simulator_tpu_torch.engine.simulator import Simulator
+    from particle_simulator_tpu_torch.io.frame import Frame
+    from particle_simulator_tpu_torch.io.presets import ParticleLattice
+    from particle_simulator_tpu_torch.physics.bucket import GridConfig
+
+    frame = Frame.new()
+    meta = frame.metadata
+    ParticleLattice((8, 8), distance_factor=4.0, velocity=(0.0, 10.0)).hex_square(
+        frame, (meta.box_width / 2, meta.box_height / 2), rng=np.random.default_rng(0))
+    meta.steps_per_frame = 3
+    sim = Simulator(GridConfig(4, 4, 8), device="cpu")
+    sim.load_frame(frame)
+    return sim
+
+
+def test_hold_grid_holds_the_served_grid_and_reports_launches(monkeypatch):
+    from particle_simulator_tpu_torch.ops import bucket_cuda
+
+    sim = _served_sim()
+    monkeypatch.setitem(bucket_cuda.LAUNCHES, "step", 7)
+    line = chip_smoke.hold_grid("as loaded", sim)
+    assert line["at"] == "as loaded" and line["shape"] == [16, 16, 8] and line["live"] == 64
+    assert line["finite"] and line["launches"]["step"] == 7
+    assert line["max_abs_err"] == {"step": 0.0, "dest": 0.0, "place": 0.0}
+    assert bucket_cuda.LAUNCHES["step"] == 7  # the hold's own launches are taken out
+    json.dumps(line)
+    sim.state = sim.state._replace(vx=torch.full_like(sim.state.vx, float("nan")))
+    with pytest.raises(AssertionError):  # the step of a NaN state differs from itself
+        chip_smoke.hold_grid("after", sim)
+
+
+def _config5_inputs():
+    rec = {"particles": 1024, "engine_fps": 4.0, "fetch_errors": 0, "engine_frames": 8}
+    check = chip_smoke.FrameCheck.__new__(chip_smoke.FrameCheck)
+    check.frames, check.particles, check.nonfinite, check.error = 10, [1024, 1024], [], None
+    launches = {"step": 300, "dest": 21, "place": 21, "step_halo": 0, "allpairs": 0}
+    err = {"step": 0.0, "dest": 0.0, "place": 0.0}
+    held = [{"finite": True, "launches": dict.fromkeys(launches, 0), "max_abs_err": err},
+            {"finite": True, "launches": launches, "max_abs_err": err}]
+    return rec, check, held
+
+
+@pytest.mark.parametrize("fault, match", [
+    (None, None),
+    (("rec", "particles", 900), "fewer than 0.9"),
+    (("rec", "engine_fps", 0.0), "engine fps"),
+    (("rec", "fetch_errors", 2), "fetches failed"),
+    (("check", "error", "ValueError()"), "frame check failed"),
+    (("check", "frames", 7), "FIFO carried 7"),
+    (("check", "frames", 13), "FIFO carried 13"),
+    (("check", "nonfinite", [4]), "not finite"),
+    (("check", "particles", [512, 1024]), "held 512 particles"),
+    (("held", "finite", False), "finite"),
+    (("launches", "dest", 0), "never launched"),
+    (("launches", "step_halo", 5), "another path"),
+])
+def test_config5_checks_accept_and_refuse(fault, match):
+    rec, check, held = _config5_inputs()
+    if fault is not None:
+        where, key, value = fault
+        target = {"rec": rec, "check": check.__dict__, "held": held[1],
+                  "launches": held[1]["launches"]}[where]
+        target[key] = value
+    if match is None:
+        got = chip_smoke.config5_checks(rec, check, held, 11, 1024)
+        assert got["launches"]["step"] == 300 and got["err"]["place"] == 0.0
+    else:
+        with pytest.raises(AssertionError, match=match):
+            chip_smoke.config5_checks(rec, check, held, 11, 1024)
+
+
+def test_phase_config5_runs_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """Phase 21 end to end at 32x32 with the daemon on the CPU: the script's
+    record, the FIFO, the daemon's two holds through --inspect, both module
+    reports; the CPU launches no kernel."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")
+    verdict = chip_smoke.phase_config5(str(tmp_path), seconds=3, n_side=32, steps_per_frame=1,
+                                       torch_device="cpu")
+    assert not any(verdict["launches"].values())
+    assert verdict["err"] == {"step": 0.0, "dest": 0.0, "place": 0.0}
+    out = capsys.readouterr().out
+    rec = json.loads(next(ln for ln in out.splitlines()
+                          if ln.startswith("config 5: "))[len("config 5: "):])
+    assert rec["particles"] == 1024 and rec["engine_frames"] > 0
+    held = json.loads(next(ln for ln in out.splitlines()
+                           if ln.startswith("config 5 held: "))[len("config 5 held: "):])
+    assert [h["at"] for h in held["states"]][0] == "as loaded"
+    assert held["fifo_frames"] >= rec["engine_frames"] and not held["nonfinite_frames"]

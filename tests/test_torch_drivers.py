@@ -5,7 +5,9 @@ PyTorch versions) and its JSON keys are held against the JAX script's, read
 from the JAX script's source (the JAX scripts run full-size scenes only, so
 they are not run here). At these sizes the numbers mean nothing physically:
 a 16x16 lattice lies on buckets narrower than the force range. The physics
-is checked at full size on the card (``chip_smoke.py`` phases 15-17).
+is checked at full size on the card (``chip_smoke.py`` phases 15-17). Config
+5's script starts the port's web editor and daemon as processes of their
+own, the daemon on the CPU (``chip_smoke.py`` phase 21 runs it on the card).
 """
 
 import ast
@@ -22,6 +24,7 @@ SCRIPTS = Path(__file__).resolve().parent.parent / "scripts"
 sys.path.insert(0, str(SCRIPTS))
 
 import torch_bench_configs  # noqa: E402
+import torch_interactive_1m_chip  # noqa: E402
 import torch_phase_sweep_chip  # noqa: E402
 import torch_soak_leapfrog_1e6  # noqa: E402
 
@@ -209,3 +212,49 @@ def test_soak_reports_an_explosion(monkeypatch):
     calls.clear()
     assert torch_soak_leapfrog_1e6.main(["--steps", "30", "--check-every", "10",
                                          "--torch-device", "cpu"]) == 1
+
+
+CONFIG5_KEYS = json_keys("interactive_1m_chip.py", "interactive-editor-1m")
+
+
+def test_interactive_script_prints_the_jax_keys(tmp_path, capsys, monkeypatch):
+    """``--n-side 32 --seconds 2 --torch-device cpu`` (one step a frame, so
+    that the plain versions ship frames inside the window): the JAX script's
+    result keys and events, both children stopped, neither importing jax or
+    the JAX package."""
+    from particle_simulator_tpu_torch.utils.log import FOREIGN_MODULES_TAG
+
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")
+    rc = torch_interactive_1m_chip.main(["--n-side", "32", "--seconds", "2", "--torch-device",
+                                         "cpu", "--steps-per-frame", "1",
+                                         "--log-dir", str(tmp_path)])
+    assert rc == 0
+    lines = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
+    events, rec = lines[:-1], lines[-1]  # no card line on the CPU
+    assert [e["event"] for e in events] == ["memory", "first_frames"]
+    assert set(events[1]) == {"event", "wait_s", "stats"}
+    assert set(rec) == CONFIG5_KEYS and len(CONFIG5_KEYS) == 15
+    assert rec["metric"] == "interactive-editor-1m" and rec["particles"] == 32 * 32
+    assert rec["engine_frames"] > 0 and rec["fetch_errors"] == 0 and rec["steps_per_frame"] == 1
+    assert rec["device"] == "CPU Thread Pool" and rec["limiter"] in ("engine", "frame.bin-fetch")
+    for log, who in (("daemon.log", "engine"), ("webview.log", "editor UI")):
+        text = (tmp_path / log).read_text()
+        assert f"{who}: {FOREIGN_MODULES_TAG}[]" in text.splitlines(), text[-2000:]
+
+
+def test_interactive_script_on_cuda_raises_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        torch_interactive_1m_chip.record(seconds=1, n_side=4, log_dir=str(tmp_path))
+    assert not list(tmp_path.iterdir())  # raised before starting anything
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        torch_interactive_1m_chip.main(["--n-side", "4", "--seconds", "1"])
+
+
+def test_cpu_seconds_reads_a_process_and_refuses_a_missing_one():
+    import os
+
+    spent = torch_interactive_1m_chip.cpu_seconds(os.getpid())
+    assert spent is not None and spent > 0
+    assert torch_interactive_1m_chip.cpu_seconds(2**22 + 12345) is None
