@@ -30,8 +30,9 @@ exits non-zero without printing a result):
    lattice (1,048,576 particles) over TCP and the port's ``serve`` ships 6
    frames back through the bucket kernels; every frame must be finite and
    every kernel launched;
-5. throughput: 100-step frames of ``run_frame_bucket_cuda`` on the dense
-   scene, in sim-steps/s and particle-steps/s;
+5. throughput (printed after phase 22): phase 22's dense bench line, 10
+   timed 100-step frames of ``run_frame_bucket_cuda`` on the dense scene
+   (particle-steps/s, sim-steps/s);
 6. all-pairs kernel against its plain version (the step envelope) on the
    gas-diffusion scene (16,384 live, 16,384 slots) and on the liquid droplet
    with the cursor on (2,025 live, 2,048 slots: tombstones), and on the
@@ -145,7 +146,26 @@ exits non-zero without printing a result):
     step, dest and place held bit for bit against their plain versions on
     the served grid as loaded and after the last frame (``hold_grid``),
     whose line also carries the daemon's launches: each of the three
-    launched, no other kernel.
+    launched, no other kernel;
+22. the bench (``particle_simulator_tpu_torch/bench.py``, the counterpart
+    of ``bench.py``) in this process at bench.py's default sizes: the dense
+    grid (1,036,320 live on 512x256x8, 10 timed frames of 100 steps),
+    ``--per-frame``, ``--sharded`` on a (1, 1) mesh of the first card, and
+    the 1M user scene (the 1000 x 1000 lattice of phases 12 and 13) with
+    ``--ext-io off``, ``compact`` and ``nocompact``. Each line must carry
+    bench.py's keys for its mode (``BENCH_KEYS``), ``"device": "cuda"``,
+    the particle count and a finite rate; each kernel of the mode's path
+    launched once a step per block and no other kernel; every kernel it
+    launched held bit for bit against its plain version on the bench's own
+    states as loaded and after the last frame (``BenchHold``, through the
+    bench's ``inspect`` hook: rows 1-3 dense, 1h, 7, 8 sharded, 1u, 2, 3
+    and 5 or 6 on the user scene); PS_EXT_IO as it was after each run.
+    Then the entry points (``particle_simulator_tpu_torch/entry.py``, the
+    counterpart of ``__graft_entry__.py``) on the card: ``entry()``'s frame
+    finite and bit for bit the plain frame's (``physics/bucket.py:
+    run_frame_bucket``) on the same tensors, and ``dryrun_multichip(n)`` for n in
+    ``DRYRUN_SHARDS``: the sharded frame (the halo kernels) bit for bit
+    against the one-device frame (the classic kernels).
 
 Every child process (the headless editors of phases 4, 11, 14 and 20, the
 web editor and the daemons of phase 21) prints the modules of jax or of the
@@ -159,18 +179,19 @@ phase's, the soak's and the integrator scene's state as loaded and after its
 run, the droplet's before and after a frame. These comparisons' launches are
 not counted, and their errors go into the kernels line's ``max_abs_err``.
 
-On a machine with more than one card, phases 10 and 11 run once more on a
-mesh of every card, one shard a card, and phase 20 with one process a card
-over NCCL (``multi_card``; ``scripts/torch_multicard_chip.py`` runs only
-these).
+On a machine with more than one card, phases 10, 11 and 22's ``--sharded``
+run once more on a mesh of every card, one shard a card, and phase 20 with
+one process a card over NCCL (``multi_card``;
+``scripts/torch_multicard_chip.py`` runs only these).
 
 The last three lines are the card's ``nvidia-smi`` line, the kernels JSON
 line and the result line. In the kernels line ``launches`` is the count of
 the served slice that runs the kernel, ``launches_scripts`` that of
 phases 15-19, each counted from 0 around its own run, and
 ``launches_multiprocess`` that of phase 20's two daemon processes (each
-counts from its start), summed, and ``launches_config5`` that of phase 21's
-daemon. It exits non-zero when
+counts from its start), summed, ``launches_config5`` that of phase 21's
+daemon and ``launches_bench`` that of phase 22's runs, summed. It exits
+non-zero when
 ``torch.cuda.is_available()`` is false.
 """
 
@@ -223,45 +244,6 @@ FORCE_LAW_COUNTS = {"fp32_per_pair": 51.0, "mufu_per_pair": 2.0}
 _FP32_OPS = {"FADD", "FMUL", "FFMA", "FMNMX", "FSEL", "FSET", "FSETP", "FRND", "FCHK",
              "I2FP", "F2FP"}
 _MUFU_OPS = {"MUFU", "I2F", "F2I", "F2F"}
-
-
-def dense_grid_scene(cfg, fill: int = 8):
-    """The bench scene, in numpy: every interior bucket holds ``fill``
-    particles on a bucket-aligned hexagonal lattice at spacing r0 (1%
-    jitter), cold (sigma 1 m/s), the outer bucket ring empty as a wall
-    margin, dt = 10 fs. Returns (grid-ordered PARTICLE_DTYPE array, metadata
-    record, live count)."""
-    from particle_simulator_tpu_torch.io.frame import PARTICLE_DTYPE, MieParams, default_metadata
-
-    meta = default_metadata()
-    n = cfg.buckets * fill
-    r0 = MieParams.nitrogen().force0_r()
-    rows = 2 if fill <= 8 else 4
-    cols = fill // rows
-    d = r0
-    box_w = float(cfg.bx * cols * d)
-    box_h = float(cfg.by * rows * (np.sqrt(3.0) / 2.0) * d)
-    meta["box_width"] = box_w
-    meta["box_height"] = box_h
-    meta["step_dt"] = 10e-15
-
-    rng = np.random.default_rng(0)
-    parts = np.zeros(n, dtype=PARTICLE_DTYPE)
-    gx, gy, gs = np.meshgrid(np.arange(cfg.bx), np.arange(cfg.by), np.arange(fill),
-                             indexing="xy")
-    gx, gy, gs = gx.ravel(), gy.ravel(), gs.ravel()
-    ixg = gx * cols + gs % cols
-    iyg = gy * rows + gs // cols
-    px = (ixg + 0.5 * (iyg % 2) + 0.25) * d + rng.uniform(-0.01, 0.01, n) * d
-    py = (iyg + 0.5) * (np.sqrt(3.0) / 2.0) * d + rng.uniform(-0.01, 0.01, n) * d
-    parts["x"] = np.clip(px / box_w * 2**32, 0, 2**32 - 1).astype(np.uint64).astype(np.uint32)
-    parts["y"] = np.clip(py / box_h * 2**32, 0, 2**32 - 1).astype(np.uint64).astype(np.uint32)
-    parts["vx"] = rng.normal(0, 1.0, n).astype(np.float32)
-    parts["vy"] = rng.normal(0, 1.0, n).astype(np.float32)
-    parts["ty"] = 0
-    interior = (gx > 0) & (gx < cfg.bx - 1) & (gy > 0) & (gy < cfg.by - 1)
-    parts["ty"][~interior] = -1
-    return parts, meta, int(np.count_nonzero(interior))
 
 
 def stress_scene(cfg, seed: int = 1):
@@ -526,6 +508,7 @@ def phase_kernels(device, dense_cfg, stress_cfg, reps: int, sass: dict):
     """Phase 3: each kernel against its plain version on the same inputs."""
     import torch
 
+    from particle_simulator_tpu_torch.bench import dense_grid_scene
     from particle_simulator_tpu_torch.engine.state import SimParams, state_from_numpy
     from particle_simulator_tpu_torch.ops import bucket_cuda as bc
     from particle_simulator_tpu_torch.physics import bucket
@@ -839,6 +822,7 @@ def phase_slice(device, lattice: str, frames: int, workdir: str, mesh=None,
     daemon, on one device or sharded over ``mesh``, with ``PS_EXT_IO`` set
     to ``ext_io``; with ``profile``, the device's busy share over the
     serve."""
+    from particle_simulator_tpu_torch.bench import ext_io_env
     from particle_simulator_tpu_torch.io.transport import Disconnected, Reader
     from particle_simulator_tpu_torch.engine import daemon
     from particle_simulator_tpu_torch.engine.simulator import Simulator
@@ -918,34 +902,6 @@ def phase_slice(device, lattice: str, frames: int, workdir: str, mesh=None,
             "profiled": profile, "device": busy}
     label = "mesh slice" if mesh is not None else "slice" if ext_io == "off" else "ext slice"
     print(f"{label}: " + json.dumps(line), flush=True)
-    return line
-
-
-def phase_throughput(device, cfg, frames: int, steps: int):
-    """Phase 5: frame rate of the kernel runner on the dense scene."""
-    import torch
-
-    from particle_simulator_tpu_torch.engine.state import SimParams, state_from_numpy
-    from particle_simulator_tpu_torch.ops.bucket_cuda import run_frame_bucket_cuda
-
-    parts, meta, live = dense_grid_scene(cfg)
-    state = state_from_numpy(parts, cfg.capacity, device).reshape(cfg.grid_shape)
-    pv = SimParams.from_record(meta).vector(device)
-    state = run_frame_bucket_cuda(state, pv, steps, cfg.move_every)  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(frames):
-        state = run_frame_bucket_cuda(state, pv, steps, cfg.move_every)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    survivors = int((state.ty >= 0).sum())
-    if not bool(torch.isfinite(state.vx[state.ty >= 0]).all()):
-        raise AssertionError("throughput run produced non-finite velocities")
-    rate = frames * steps / dt
-    line = {"grid": list(cfg.grid_shape), "particles": live, "survivors": survivors,
-            "frames": frames, "steps_per_frame": steps, "seconds": dt,
-            "sim_steps_per_s": rate, "particle_steps_per_s": rate * live}
-    print("throughput: " + json.dumps(line), flush=True)
     return line
 
 
@@ -1161,6 +1117,7 @@ def phase_halo_kernels(device, dense_cfg, stress_cfg, reps: int, sass: dict):
     block of four halo-padded shards of a (2, 2) split."""
     import torch
 
+    from particle_simulator_tpu_torch.bench import dense_grid_scene
     from particle_simulator_tpu_torch.engine.state import SimParams, state_from_numpy
     from particle_simulator_tpu_torch.ops import bucket_cuda as bc
     from particle_simulator_tpu_torch.parallel import domain
@@ -1243,6 +1200,7 @@ def phase_sharded_frame(device, cfg, frames: int, steps: int, timed: int, mesh=N
     against ``run_frame_bucket_cuda`` on the dense scene."""
     import torch
 
+    from particle_simulator_tpu_torch.bench import dense_grid_scene
     from particle_simulator_tpu_torch.engine.state import (
         ParticleState,
         SimParams,
@@ -1548,20 +1506,6 @@ def readback_check(sim) -> dict:
     return {"active_kernel": kernel, "particles": got.particle_count}
 
 
-@contextlib.contextmanager
-def ext_io_env(mode: str):
-    """``PS_EXT_IO`` set to ``mode`` while the context is open."""
-    old = os.environ.get("PS_EXT_IO")
-    os.environ["PS_EXT_IO"] = mode
-    try:
-        yield
-    finally:
-        if old is None:
-            del os.environ["PS_EXT_IO"]
-        else:
-            os.environ["PS_EXT_IO"] = old
-
-
 def phase_ext_frame(device, scene, frames: int, timed: int):
     """Phase 13: the ext frame in both modes against the classic frame on
     the 1M user scene, bit for bit on every slot; frame times; then the
@@ -1569,6 +1513,7 @@ def phase_ext_frame(device, scene, frames: int, timed: int):
     PS_EXT_IO=compact."""
     import torch
 
+    from particle_simulator_tpu_torch.bench import ext_io_env
     from particle_simulator_tpu_torch.engine.simulator import Simulator
     from particle_simulator_tpu_torch.ops.bucket_cuda import run_frame_bucket_cuda
     from particle_simulator_tpu_torch.physics import bucket
@@ -2223,6 +2168,7 @@ def multiprocess_frame_child(workdir: str, cfg, n_shards: int) -> int:
     import torch
     import torch.distributed as dist
 
+    from particle_simulator_tpu_torch.bench import dense_grid_scene
     from particle_simulator_tpu_torch.engine.state import SimParams, state_from_numpy
     from particle_simulator_tpu_torch.ops import bucket_cuda as bc
     from particle_simulator_tpu_torch.parallel import domain, multihost
@@ -2304,6 +2250,7 @@ def phase_multiprocess(cfg, workdir: str, world: int, n_shards: int, own_cards: 
     per frame must be this serve's."""
     import torch
 
+    from particle_simulator_tpu_torch.bench import dense_grid_scene
     from particle_simulator_tpu_torch.engine.state import (
         ParticleState,
         SimParams,
@@ -2616,20 +2563,213 @@ def phase_config5(workdir: str, seconds: float = CONFIG5_SECONDS, n_side: int = 
     return verdict
 
 
+# bench.py's JSON keys in each mode, frozen (tests/test_torch_bench.py holds
+# them against bench.py's own lines)
+_BENCH_COMMON = frozenset({"metric", "value", "unit", "vs_baseline", "particles",
+                           "steps_per_frame", "frames", "elapsed_s", "sim_steps_per_sec",
+                           "device"})
+BENCH_KEYS = {
+    "dense": _BENCH_COMMON | {"live_fraction_end"},
+    "per-frame": _BENCH_COMMON | {"live_fraction_end", "frame_s", "frame_s_series"},
+    "sharded": _BENCH_COMMON | {"live_fraction_end", "sharded_mesh"},
+    "user": _BENCH_COMMON | {"scene", "readback_ms", "readback_k", "readback_ncap", "grid",
+                             "lane_chunks", "ext_io"},
+}
+# the 1M user scene of phases 12 and 13 (a 1000 x 1000 lattice); bench.py's
+# default --particles would draw 1024 x 1024, config 5's lattice
+BENCH_USER = ("--user-scene", "--particles", "1000000")
+# phase 22's runs: label -> (key set, the kernels of its path, the bench's arguments)
+BENCH_RUNS = {
+    "dense": ("dense", CONFIG5_PATH, ()),
+    "per-frame": ("per-frame", CONFIG5_PATH, ("--per-frame",)),
+    "sharded": ("sharded", HALO_KERNELS, ("--sharded",)),
+    "user off": ("user", CONFIG5_PATH, (*BENCH_USER, "--ext-io", "off")),
+    "user compact": ("user", ("step_compact", "dest", "place"),
+                     (*BENCH_USER, "--ext-io", "compact")),
+    "user nocompact": ("user", ("step_ext", "dest", "place"),
+                       (*BENCH_USER, "--ext-io", "nocompact")),
+}
+BENCH_EXT = {"compact": "step_compact", "nocompact": "step_ext"}
+
+
+class BenchHold(KernelHold):
+    """``KernelHold`` on the bench's states (phase 22, through the bench's
+    ``inspect`` hook). A grid holds the classic step, the dest and the
+    place, and with ``ext`` (``compact`` or ``nocompact``) that ext-layout
+    step too, on the lane chunks the Simulator's load rule picks for the
+    state (``_lane_chunks_for``; none when it picks one, since the ext frame
+    then does not run) and 8-row tiles (the default launch width's). A tuple
+    of blocks is the sharded frame's: ``hold_halo`` on ``mesh`` with the
+    global grid ``cfg``."""
+
+    def __init__(self, ext: str | None = None, mesh=None, cfg=None):
+        super().__init__()
+        self.ext, self.mesh, self.cfg = ext, mesh, cfg
+        self.err.update(dict.fromkeys((*BENCH_EXT.values(), *HALO_KERNELS), 0.0))
+
+    def __call__(self, label: str, state, pv) -> None:
+        from particle_simulator_tpu_torch.engine.simulator import _lane_chunks_for
+        from particle_simulator_tpu_torch.ops import bucket_cuda as bc
+        from particle_simulator_tpu_torch.physics import bucket
+
+        if not hasattr(state, "_fields"):  # the mesh's blocks
+            line = hold_halo(label, state, self.mesh, self.cfg, pv)
+            for k, v in line["max_abs_err"].items():
+                self.err[k] = max(self.err[k], v)
+            self.held.append(line)
+            return
+        super().__call__(label, state, pv)
+        if self.ext is None:
+            return
+        grid = bucket.GridConfig(*bucket.grid_log2(state), state.x.shape[-1])
+        chunks = _lane_chunks_for((state.ty >= 0).sum(-1).cpu().numpy(), grid)
+        self.held[-1]["lane_chunks"] = chunks
+        if chunks == 1:
+            return
+        name, compact = BENCH_EXT[self.ext], self.ext == "compact"
+        launches = dict(bc.LAUNCHES)
+        aux = bucket.ext_step_aux(state, pv, chunks, 8)
+        err = same_state(bc.bucket_step_ext_cuda(bc.ext_pair(state), aux, compact).cur,
+                         bucket.bucket_step_ext(state, aux, compact),
+                         f"{label}: the {self.ext} ext step against its plain version")
+        bc.LAUNCHES.update(launches)
+        self.err[name] = max(self.err[name], err)
+
+
+def bench_particles(args) -> int:
+    """The live count a bench run of the parsed ``args`` starts with: the
+    dense grid's interior buckets times ``fill``, or the user lattice's
+    side squared."""
+    from particle_simulator_tpu_torch import bench
+
+    if args.user_scene:
+        return max(2, int(round(args.particles ** 0.5))) ** 2
+    cfg = bench.dense_grid_config(args.particles, args.fill)
+    return (cfg.bx - 2) * (cfg.by - 2) * args.fill
+
+
+def bench_checks(label: str, mode: str, rec: dict, launches: dict, path, particles: int,
+                 device: str, mesh=None) -> None:
+    """Phase 22's checks on one bench line: bench.py's keys for ``mode``,
+    the device, ``particles``, a finite positive rate, the mesh's shape
+    when sharded; each kernel of ``path`` (none on the CPU) launched once a
+    step per block, the rebucket's at least once, and no other kernel."""
+    if set(rec) != BENCH_KEYS[mode]:
+        raise AssertionError(f"bench {label}: keys {sorted(set(rec) ^ BENCH_KEYS[mode])} "
+                             "differ from bench.py's")
+    if rec["device"] != device or rec["particles"] != particles:
+        raise AssertionError(f"bench {label}: {rec['particles']} particles on "
+                             f"{rec['device']}, expected {particles} on {device}")
+    if not (np.isfinite(rec["value"]) and rec["value"] > 0):
+        raise AssertionError(f"bench {label}: rate {rec['value']}")
+    blocks = 1
+    if mesh is not None:
+        if rec["sharded_mesh"] != list(mesh.shape):
+            raise AssertionError(f"bench {label}: mesh {rec['sharded_mesh']}, expected "
+                                 f"{list(mesh.shape)}")
+        blocks = len(mesh.blocks)
+    if path:
+        want = (rec["frames"] + 1) * rec["steps_per_frame"] * blocks  # the warm-up too
+        if launches[path[0]] != want or any(launches[k] == 0 for k in path[1:]):
+            raise AssertionError(f"bench {label}: launches {launches}, expected {want} "
+                                 f"{path[0]} and every kernel of {path}")
+    if any(v for k, v in launches.items() if k not in path):
+        raise AssertionError(f"bench {label}: a kernel of another path launched: {launches}")
+
+
+def phase_bench(device: str = "cuda", runs=tuple(BENCH_RUNS), size=(), devices=None) -> dict:
+    """Phase 22: the port's bench (``particle_simulator_tpu_torch/bench.py``)
+    in this process, once in each mode of ``runs``, at bench.py's default
+    sizes (``size`` appends arguments, as the CPU tests do to shrink them),
+    ``--sharded`` over ``devices`` (every visible card by default). Every
+    line must pass ``bench_checks`` (the bench itself raises on non-finite
+    velocities); every kernel the run launched is held bit for bit against
+    its plain version on the bench's states as loaded and after the last
+    frame (``BenchHold``, whose launches are not counted); PS_EXT_IO is as
+    it was after each run. Returns the records, the launches summed over
+    the runs and each kernel's largest error."""
+    import torch
+
+    from particle_simulator_tpu_torch import bench
+
+    records, total = {}, {}
+    err = dict.fromkeys(BenchHold().err, 0.0)
+    for label in runs:
+        mode, path, args = BENCH_RUNS[label]
+        argv = [*args, "--torch-device", device, *size]
+        parsed = bench.parser().parse_args(argv)
+        mesh = bench.bench_mesh(torch.device(device), devices) if parsed.sharded else None
+        hold = BenchHold(ext=parsed.ext_io if parsed.ext_io in BENCH_EXT else None, mesh=mesh,
+                         cfg=bench.dense_grid_config(parsed.particles, parsed.fill))
+        ext_io = os.environ.get("PS_EXT_IO")
+        with counted_launches() as launches:
+            rec = bench.run(argv, devices=devices, inspect=hold)
+        if os.environ.get("PS_EXT_IO") != ext_io:
+            raise AssertionError(f"bench {label} left PS_EXT_IO at "
+                                 f"{os.environ.get('PS_EXT_IO')!r}, not {ext_io!r}")
+        bench_checks(label, mode, rec, launches, path if device == "cuda" else (),
+                     bench_particles(parsed), device, mesh)
+        if len(hold.held) != 2:
+            raise AssertionError(f"bench {label}: held {len(hold.held)} states, not 2")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        for k, v in hold.err.items():
+            err[k] = max(err[k], v)
+        records[label] = rec
+        print(f"bench {label}: " + json.dumps(
+            {**rec, "argv": argv, "launches": {k: v for k, v in launches.items() if v},
+             "held": hold.held}), flush=True)
+    return {"records": records, "launches": total, "err": err}
+
+
+DRYRUN_SHARDS = (1, 3, 4, 8)
+
+
+def phase_entry(device: str = "cuda", shards=DRYRUN_SHARDS) -> dict:
+    """Phase 22's last part: the entry points of ``particle_simulator_tpu_
+    torch/entry.py`` on ``device``. ``entry()``'s frame (the classic
+    kernels on a card) must be finite on its live slots and equal the plain
+    frame on the same tensors on every field and slot; ``dryrun_multichip(n)``
+    raises unless its sharded frame equals the one-device frame bit for bit."""
+    import torch
+
+    from particle_simulator_tpu_torch import entry
+    from particle_simulator_tpu_torch.physics.bucket import GridConfig, run_frame_bucket
+
+    t0 = time.perf_counter()
+    fn, (state, params) = entry.entry(device)
+    out = fn(state, params)
+    plain = run_frame_bucket(state, params, entry.STEPS, GridConfig(*entry.GRID).move_every)
+    live = out.ty >= 0
+    if not all(bool(torch.isfinite(v[live]).all()) for v in (out.vx, out.vy)):
+        raise AssertionError("entry(): the frame is not finite")
+    for name, a, b in zip(out._fields, out, plain):
+        if not torch.equal(a, b):
+            raise AssertionError(f"entry(): field {name} differs from the plain frame at "
+                                 f"{int((a != b).sum())} slots")
+    for n in shards:
+        entry.dryrun_multichip(n, device)
+    line = {"live": [int((state.ty >= 0).sum()), int(live.sum())],
+            "dryrun_shards": list(shards), "seconds": time.perf_counter() - t0}
+    print("entry: " + json.dumps(line), flush=True)
+    return line
+
+
 def kernel_entry(name, source, replaces, launches, max_abs_err, ms, plain_ms, bnd,
                  library_ms, launches_scripts=0, launches_multiprocess=0,
-                 launches_config5=0):
+                 launches_config5=0, launches_bench=0):
     """One kernel of the kernels line. ``launches`` is the count of the
     served slice that runs the kernel; ``launches_scripts`` that of the
     scene runner's and the config scripts' path (phases 15-19);
     ``launches_multiprocess`` that of phase 20's two daemon processes,
-    summed; ``launches_config5`` that of phase 21's daemon."""
+    summed; ``launches_config5`` that of phase 21's daemon;
+    ``launches_bench`` that of phase 22's bench runs, summed."""
     return {"name": name, "route": "cuda", "source": f"{CSRC}/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": max_abs_err,
             "ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": library_ms,
             "launches_scripts": launches_scripts,
             "launches_multiprocess": launches_multiprocess,
-            "launches_config5": launches_config5}
+            "launches_config5": launches_config5, "launches_bench": launches_bench}
 
 
 def main() -> int:
@@ -2676,7 +2816,6 @@ def main() -> int:
     kern = phase_kernels(device, dense_cfg, GridConfig(4, 4, 16), reps=20, sass=sass)
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as workdir:
         sl = phase_slice(device, "1024x1024", 6, workdir)
-    phase_throughput(device, dense_cfg, frames=5, steps=100)
     ap = phase_allpairs_kernel(device, reps=20, sass=sass)
     cs = phase_compact_slice(device, compact_frames=6, bucket_frames=3)
     phase_allpairs_throughput(device, frames=5, steps=100)
@@ -2729,6 +2868,12 @@ def main() -> int:
         c5 = phase_config5(workdir)
     c5l, c5err = c5["launches"], c5["err"]
 
+    # 22. the bench in each mode, --sharded on a (1, 1) mesh of the first card
+    bn = phase_bench(device, devices=[torch.device(device, 0)])
+    bl, berr = bn["launches"], bn["err"]
+    print("throughput: " + json.dumps(bn["records"]["dense"]), flush=True)
+    phase_entry(device)
+
     if "jax" in sys.modules or any(m.split(".")[0] == "particle_simulator_tpu"
                                    for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
@@ -2738,47 +2883,52 @@ def main() -> int:
     ap_err = max(line["max_abs_err_v"] for line in ap.values())
     kernels = [
         kernel_entry("bucket_step", "bucket_step.cu", STEP_KERNEL, sl["launches"]["step"],
-                     max(err, hold.err["step"], c5err["step"]), ms["step"], ms["step_plain"],
-                     bnd["step"], None, scripted["step"], launches_config5=c5l["step"]),
+                     max(err, hold.err["step"], c5err["step"], berr["step"]), ms["step"],
+                     ms["step_plain"], bnd["step"], None, scripted["step"],
+                     launches_config5=c5l["step"], launches_bench=bl["step"]),
         kernel_entry("bucket_dest", "bucket_dest.cu", DEST_KERNEL, sl["launches"]["dest"],
-                     max(hold.err["dest"], c5err["dest"]), ms["dest"], ms["dest_plain"],
-                     bnd["dest"], None, scripted["dest"], launches_config5=c5l["dest"]),
+                     max(hold.err["dest"], c5err["dest"], berr["dest"]), ms["dest"],
+                     ms["dest_plain"], bnd["dest"], None, scripted["dest"],
+                     launches_config5=c5l["dest"], launches_bench=bl["dest"]),
         kernel_entry("bucket_place", "bucket_place.cu", PLACE_KERNEL, sl["launches"]["place"],
-                     max(hold.err["place"], c5err["place"]), ms["place"], ms["place_plain"],
-                     bnd["place"], ms["place_library"], scripted["place"],
-                     launches_config5=c5l["place"]),
+                     max(hold.err["place"], c5err["place"], berr["place"]), ms["place"],
+                     ms["place_plain"], bnd["place"], ms["place_library"], scripted["place"],
+                     launches_config5=c5l["place"], launches_bench=bl["place"]),
         kernel_entry("allpairs_step", "allpairs_step.cu", ALLPAIRS_KERNEL,
                      cs["launches"]["allpairs"], max(ap_err, hold.err["allpairs"]),
                      gas["ms"]["kernel"],
-                     gas["ms"]["plain"], gas["bound"], gas["library_ms"], scripted["allpairs"]),
+                     gas["ms"]["plain"], gas["bound"], gas["library_ms"], scripted["allpairs"],
+                     launches_bench=bl["allpairs"]),
     ]
     hms, hbnd = halo["dense"]["ms"], halo["dense"]["bounds"]
     herr = max(line["step_max_abs_err_v"] for line in halo.values())
     mpl = mp["launches"]
     kernels += [
         kernel_entry("bucket_step_halo", "bucket_step.cu", STEP_HALO_KERNEL,
-                     msl["launches"]["step_halo"], max(herr, mp_err["step_halo"]), hms["step"],
+                     msl["launches"]["step_halo"],
+                     max(herr, mp_err["step_halo"], berr["step_halo"]), hms["step"],
                      hms["step_plain"], hbnd["step"], None,
-                     launches_multiprocess=mpl["step_halo"]),
+                     launches_multiprocess=mpl["step_halo"], launches_bench=bl["step_halo"]),
         kernel_entry("bucket_dest_halo", "bucket_dest.cu", DEST_HALO_KERNEL,
-                     msl["launches"]["dest_halo"], mp_err["dest_halo"], hms["dest"],
-                     hms["dest_plain"], hbnd["dest"], None,
-                     launches_multiprocess=mpl["dest_halo"]),
+                     msl["launches"]["dest_halo"], max(mp_err["dest_halo"], berr["dest_halo"]),
+                     hms["dest"], hms["dest_plain"], hbnd["dest"], None,
+                     launches_multiprocess=mpl["dest_halo"], launches_bench=bl["dest_halo"]),
         kernel_entry("bucket_place_halo", "bucket_place.cu", PLACE_HALO_KERNEL,
-                     msl["launches"]["place_halo"], mp_err["place_halo"], hms["place"],
-                     hms["place_plain"],
-                     hbnd["place"], hms["place_library"],
-                     launches_multiprocess=mpl["place_halo"]),
+                     msl["launches"]["place_halo"],
+                     max(mp_err["place_halo"], berr["place_halo"]), hms["place"],
+                     hms["place_plain"], hbnd["place"], hms["place_library"],
+                     launches_multiprocess=mpl["place_halo"], launches_bench=bl["place_halo"]),
     ]
     ems, ebnd = ext["user"]["ms"], ext["user"]["bound"]
     eerr = max(line["max_abs_err_v"] for line in ext.values())
     kernels += [
         kernel_entry("bucket_step_ext", "bucket_step.cu", EXT_KERNEL,
-                     esl["nocompact"]["launches"]["step_ext"], eerr, ems["ext"],
-                     ems["ext_plain"], ebnd, None),
+                     esl["nocompact"]["launches"]["step_ext"], max(eerr, berr["step_ext"]),
+                     ems["ext"], ems["ext_plain"], ebnd, None, launches_bench=bl["step_ext"]),
         kernel_entry("bucket_step_compact", "bucket_step.cu", COMPACT_KERNEL,
-                     esl["compact"]["launches"]["step_compact"], eerr, ems["compact"],
-                     ems["compact_plain"], ebnd, None),
+                     esl["compact"]["launches"]["step_compact"],
+                     max(eerr, berr["step_compact"]), ems["compact"], ems["compact_plain"], ebnd,
+                     None, launches_bench=bl["step_compact"]),
     ]
     print("library calls: bucket_step(_halo, _ext, _compact), bucket_dest(_halo), "
           "allpairs_step none (no single PyTorch call computes the Mie step, the pull-order "
@@ -2793,9 +2943,10 @@ def main() -> int:
 
 
 def multi_card(device, dense_cfg) -> dict:
-    """Phases 10, 11 and 20 over every card: the single-controller mesh's
-    sharded frame and serve, then one process a card over NCCL (whose
-    result it returns)."""
+    """Phases 10, 11, 22's ``--sharded`` and 20 over every card: the
+    single-controller mesh's sharded frame, serve and bench, then one
+    process a card over NCCL (whose result it returns, with the bench's
+    halo holds folded into its errors)."""
     import torch
 
     from particle_simulator_tpu_torch.ops import build
@@ -2805,10 +2956,12 @@ def multi_card(device, dense_cfg) -> dict:
     phase_sharded_frame(device, dense_cfg, frames=3, steps=100, timed=3, mesh=cards)
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as workdir:
         msl = phase_slice(device, "1024x1024", 12, workdir, mesh=cards)
+    bench_err = phase_bench(device, runs=("sharded",))["err"]
     n = torch.cuda.device_count()
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as workdir:
-        return phase_multiprocess(dense_cfg, workdir, world=n, n_shards=n, own_cards=True,
-                                  beside=msl)
+        mp = phase_multiprocess(dense_cfg, workdir, world=n, n_shards=n, own_cards=True,
+                                beside=msl)
+    return {**mp, "err": {k: max(v, bench_err[k]) for k, v in mp["err"].items()}}
 
 
 if __name__ == "__main__":

@@ -196,13 +196,14 @@ def grid_states(dev):
     """label -> (state, params vector, (bx_log2, by_log2), shard offsets or
     None, ring) of the step and dest families' four states."""
     import chip_smoke as cs
+    from particle_simulator_tpu_torch.bench import dense_grid_scene
     from particle_simulator_tpu_torch.engine.simulator import Simulator
     from particle_simulator_tpu_torch.engine.state import SimParams, state_from_numpy
     from particle_simulator_tpu_torch.parallel import domain
     from particle_simulator_tpu_torch.physics.bucket import GridConfig
 
     cfg = GridConfig(8, 9, 8)
-    parts, meta, _ = cs.dense_grid_scene(cfg)
+    parts, meta, _ = dense_grid_scene(cfg)
     dense = state_from_numpy(parts, cfg.capacity, dev).reshape(cfg.grid_shape)
     pv = SimParams.from_record(meta).vector(dev)
     log2 = (cfg.bx_log2, cfg.by_log2)

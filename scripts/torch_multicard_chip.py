@@ -8,7 +8,9 @@ On a machine with several cards, from the repository root:
 builds the kernels, prints every card's ``nvidia-smi`` name and power limit,
 then runs ``chip_smoke.multi_card``: the dense scene's sharded frame and the
 1024x1024 editor lattice's serve on the single-controller mesh of every card
-(phases 10 and 11), then phase 20 with one process a card over NCCL (the
+(phases 10 and 11), the bench's ``--sharded`` mode over every card, its halo
+kernels held against their plain versions (phase 22's run), then phase 20
+with one process a card over NCCL (the
 sharded frame bit for bit against one card, the serve through
 ``scripts/torch_launch_multihost.sh``). Each phase prints its JSON line; any
 failure raises. It exits non-zero with fewer than two cards.

@@ -4,7 +4,9 @@ the place library calls, the device busy-share arithmetic, the ext step's
 bound and live-tile share, the readback check, phase 20's child lines,
 launch check and grid identity, and phase 21's module reports, FIFO frame
 check, served-grid hold and checks (the whole phase once, on the CPU at a
-small size). The card's own phases run only on the card."""
+small size), and phase 22's bench-line checks and holds (the whole phase
+once, on the CPU at a tiny size). The card's own phases run only on the
+card."""
 
 import json
 import os
@@ -14,6 +16,7 @@ import pytest
 import torch
 
 import chip_smoke
+from particle_simulator_tpu_torch.bench import dense_grid_scene
 from particle_simulator_tpu_torch.engine.state import state_from_numpy
 from particle_simulator_tpu_torch.physics import bucket
 
@@ -62,7 +65,7 @@ def test_bounds_from_pair_counts():
 
 def test_bucket_pairs_and_place_library_call():
     cfg = bucket.GridConfig(3, 3, 8)
-    parts, _, live = chip_smoke.dense_grid_scene(cfg)
+    parts, _, live = dense_grid_scene(cfg)
     state = state_from_numpy(parts, cfg.capacity).reshape(cfg.grid_shape)
     nbr = bucket.gather_neighborhood(state)
     own = bucket._self_pair_mask(cfg.cap, "cpu")
@@ -80,7 +83,7 @@ def test_halo_pairs_and_halo_place_library_call():
     single-device count summed, and the halo place's library call is the
     halo place."""
     cfg = bucket.GridConfig(3, 3, 8)
-    parts, _, _ = chip_smoke.dense_grid_scene(cfg)
+    parts, _, _ = dense_grid_scene(cfg)
     state = state_from_numpy(parts, cfg.capacity).reshape(cfg.grid_shape)
     stack = bucket.ParticleState(*(torch.stack([a, a]) for a in state))
     padded = bucket.pad_tombstone_halo(stack)
@@ -108,7 +111,7 @@ def test_busy_summary_merges_overlaps_and_windows():
 
 def quarter_live_dense(cfg):
     """The dense bench scene with only its top-left quarter kept."""
-    parts, _, _ = chip_smoke.dense_grid_scene(cfg)
+    parts, _, _ = dense_grid_scene(cfg)
     state = state_from_numpy(parts, cfg.capacity).reshape(cfg.grid_shape)
     state.ty[cfg.by // 2:] = -1
     state.ty[:, cfg.bx // 2:] = -1
@@ -442,9 +445,10 @@ def test_kernel_entry_keeps_the_contract_keys():
                                     None, 337_500)
     assert set(entry) == {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                           "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_scripts",
-                          "launches_multiprocess", "launches_config5"}
+                          "launches_multiprocess", "launches_config5", "launches_bench"}
     assert entry["launches"] == 1100 and entry["launches_scripts"] == 337_500
     assert entry["launches_multiprocess"] == 0 and entry["launches_config5"] == 0
+    assert entry["launches_bench"] == 0
     halo = chip_smoke.kernel_entry("bucket_step_halo", "bucket_step.cu",
                                    chip_smoke.STEP_HALO_KERNEL, 1800, 0.0, 0.2, 23.4,
                                    {"bound_ms": 0.1, "bound_by": "operations"}, None,
@@ -758,3 +762,192 @@ def test_phase_config5_runs_on_the_cpu(tmp_path, monkeypatch, capsys):
                            if ln.startswith("config 5 held: "))[len("config 5 held: "):])
     assert [h["at"] for h in held["states"]][0] == "as loaded"
     assert held["fifo_frames"] >= rec["engine_frames"] and not held["nonfinite_frames"]
+
+
+# phase 22's pure helpers: the bench's line checks, the hold on the bench's
+# states, and the whole phase once on the CPU at a tiny size
+
+def _bench_line(mode="dense", **kw):
+    rec = {k: 1 for k in chip_smoke.BENCH_KEYS[mode]}
+    rec.update(device="cuda", particles=288, value=5.0e9, frames=2, steps_per_frame=4)
+    if mode == "sharded":
+        rec["sharded_mesh"] = [1, 1]
+    rec.update(kw)
+    return rec
+
+
+@pytest.mark.parametrize("fault, match", [
+    (None, None),
+    (("rec", "live_fraction_end", None), "keys"),
+    (("rec", "frame_s", 1), "keys"),
+    (("rec", "device", "cpu"), "expected 288 on cuda"),
+    (("rec", "particles", 287), "expected 288"),
+    (("rec", "value", float("nan")), "rate"),
+    (("rec", "value", 0.0), "rate"),
+    (("launches", "step", 11), "expected 12 step"),
+    (("launches", "place", 0), "every kernel"),
+    (("launches", "step_halo", 3), "another path"),
+])
+def test_bench_checks_accept_and_refuse(fault, match):
+    rec = _bench_line()
+    launches = {"step": 12, "dest": 1, "place": 1, "step_halo": 0, "allpairs": 0}
+    if fault is not None:
+        where, key, value = fault
+        target = rec if where == "rec" else launches
+        if value is None:
+            del target[key]
+        else:
+            target[key] = value
+    args = ("dense", "dense", rec, launches, chip_smoke.CONFIG5_PATH, 288, "cuda")
+    if match is None:
+        chip_smoke.bench_checks(*args)
+    else:
+        with pytest.raises(AssertionError, match=match):
+            chip_smoke.bench_checks(*args)
+
+
+def test_bench_checks_count_a_step_a_block_on_a_mesh():
+    """Sharded: one halo step launch a step per block, and the mesh's shape."""
+    from particle_simulator_tpu_torch.parallel import domain
+
+    mesh = domain.make_mesh(devices=[torch.device("cpu", i) for i in range(4)])
+    launches = {"step_halo": 4 * 12, "dest_halo": 4, "place_halo": 4, "step": 0}
+    rec = _bench_line("sharded", sharded_mesh=[2, 2])
+    chip_smoke.bench_checks("s", "sharded", rec, launches, chip_smoke.HALO_KERNELS, 288,
+                            "cuda", mesh)
+    with pytest.raises(AssertionError, match="mesh"):
+        chip_smoke.bench_checks("s", "sharded", {**rec, "sharded_mesh": [1, 1]}, launches,
+                                chip_smoke.HALO_KERNELS, 288, "cuda", mesh)
+    with pytest.raises(AssertionError, match="expected 48"):
+        chip_smoke.bench_checks("s", "sharded", rec, {**launches, "step_halo": 12},
+                                chip_smoke.HALO_KERNELS, 288, "cuda", mesh)
+
+
+def test_bench_particles_follow_the_arguments():
+    from particle_simulator_tpu_torch import bench
+
+    def count(*argv):
+        return chip_smoke.bench_particles(bench.parser().parse_args(list(argv)))
+
+    assert count() == 510 * 254 * 8 == 1_036_320
+    assert count("--particles", "512") == 6 * 6 * 8
+    assert count(*chip_smoke.BENCH_USER) == 1_000_000
+    assert count("--user-scene") == 1024 * 1024
+    assert bench.dense_grid_scene(bench.dense_grid_config(512))[2] == count("--particles", "512")
+
+
+def _sparse_grid():
+    """A 16 x 128 x 16 grid whose left half holds the dense lattice: two
+    lane chunks, two of its four 8-row tiles live."""
+    from particle_simulator_tpu_torch import bench
+    from particle_simulator_tpu_torch.engine.state import SimParams
+    from particle_simulator_tpu_torch.physics.bucket import GridConfig
+
+    cfg = GridConfig(7, 4, 16)
+    parts, meta, _ = bench.dense_grid_scene(cfg, 16)
+    state = state_from_numpy(parts, cfg.capacity).reshape(cfg.grid_shape)
+    state.ty[:, cfg.bx // 2:] = -1
+    return state, SimParams.from_record(meta).vector()
+
+
+@pytest.mark.parametrize("ext", ["compact", "nocompact"])
+def test_bench_hold_holds_the_ext_step_and_keeps_the_counts(monkeypatch, ext):
+    from particle_simulator_tpu_torch.ops import bucket_cuda
+
+    state, pv = _sparse_grid()
+    name = chip_smoke.BENCH_EXT[ext]
+    monkeypatch.setitem(bucket_cuda.LAUNCHES, name, 7)
+    real = bucket_cuda.bucket_step_ext_cuda
+
+    def counting(pair, aux, compact):  # as the wrapper does where it launches
+        bucket_cuda.LAUNCHES["step_compact" if compact else "step_ext"] += 1
+        return real(pair, aux, compact)
+
+    monkeypatch.setattr(bucket_cuda, "bucket_step_ext_cuda", counting)
+    hold = chip_smoke.BenchHold(ext=ext)
+    hold("loaded", state, pv)
+    assert bucket_cuda.LAUNCHES[name] == 7
+    assert hold.held[0]["lane_chunks"] == 2 and hold.held[0]["moved_by_dest"] >= 0
+    assert set(hold.err) == {"step", "dest", "place", "allpairs", "step_compact", "step_ext",
+                             *chip_smoke.HALO_KERNELS}
+    assert not any(hold.err.values())
+    # one lane chunk: the ext frame does not run, so nothing more is held
+    one, _ = _soak_grid()
+    hold("one chunk", one, _soak_grid()[1])
+    assert hold.held[1]["lane_chunks"] == 1
+
+
+def test_bench_hold_raises_on_an_ext_difference(monkeypatch):
+    from particle_simulator_tpu_torch.ops import bucket_cuda
+
+    state, pv = _sparse_grid()
+    real = bucket_cuda.bucket_step_ext_cuda
+
+    def off_by_one(pair, aux, compact):
+        out = real(pair, aux, compact)
+        x = out.cur.x.clone()
+        x[3, 3, 0] += 1
+        return out._replace(cur=out.cur._replace(x=x))
+
+    monkeypatch.setattr(bucket_cuda, "bucket_step_ext_cuda", off_by_one)
+    chip_smoke.BenchHold()("classic only", state, pv)
+    with pytest.raises(AssertionError, match="compact ext step"):
+        chip_smoke.BenchHold(ext="compact")("loaded", state, pv)
+
+
+def test_bench_hold_takes_a_mesh_s_blocks_to_hold_halo():
+    blocks, mesh, cfg, pvs = _halo_blocks()
+    hold = chip_smoke.BenchHold(mesh=mesh, cfg=cfg)
+    hold("sharded", blocks, pvs)
+    assert hold.held[0]["blocks"] == [[4, 10, 10, 16]]
+    assert hold.err["step_halo"] == 0.0 and hold.held[0]["migrating_in_from_ring"] > 0
+
+
+def test_phase_bench_runs_on_the_cpu(capsys):
+    """Phase 22 end to end at 512 particles, 2 frames of 4 steps, on the
+    CPU: every mode's line passes its checks, each run held two states;
+    the CPU launches no kernel."""
+    size = ("--particles", "512", "--frames", "2", "--steps", "4")
+    ext_io = os.environ.get("PS_EXT_IO")
+    out = chip_smoke.phase_bench("cpu", size=size)
+    assert sorted(out["records"]) == sorted(chip_smoke.BENCH_RUNS)
+    assert not any(out["launches"].values()) and not any(out["err"].values())
+    assert out["records"]["sharded"]["sharded_mesh"] == [1, 1]
+    assert {r["ext_io"] for k, r in out["records"].items() if k.startswith("user")} == {
+        "off", "compact", "nocompact"}
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("bench ")]
+    assert len(lines) == len(chip_smoke.BENCH_RUNS)
+    assert os.environ.get("PS_EXT_IO") == ext_io
+
+
+
+def test_phase_entry_runs_on_the_cpu(capsys):
+    """Phase 22's entry points on the CPU: ``entry()``'s frame of the tiny
+    scene (32 of its 144 particles fit the four full 8-slot buckets it
+    covers; the frame ends with 31, as ``__graft_entry__.py``'s does), and
+    the dry run for each shard count asked."""
+    line = chip_smoke.phase_entry("cpu", shards=(1, 3))
+    assert line["live"] == [32, 31] and line["dryrun_shards"] == [1, 3]
+    assert "entry: " in capsys.readouterr().out
+
+
+def test_phase_entry_fails_on_a_difference(monkeypatch):
+    """A frame of ``entry()`` one unit off in one slot fails the phase."""
+    from particle_simulator_tpu_torch import entry
+
+    real = entry.entry
+
+    def off_by_one(device="cuda"):
+        fn, args = real(device)
+
+        def wrong(state, params):
+            out = fn(state, params)
+            x = out.x.clone()
+            x.view(-1)[0] += 1
+            return out._replace(x=x)
+
+        return wrong, args
+
+    monkeypatch.setattr(entry, "entry", off_by_one)
+    with pytest.raises(AssertionError, match="field x differs from the plain frame"):
+        chip_smoke.phase_entry("cpu", shards=())

@@ -416,6 +416,8 @@ def test_port_never_imports_jax():
     ]
     assert "particle_simulator_tpu_torch.engine.daemon" in modules
     assert "particle_simulator_tpu_torch.ops.bucket_cuda" in modules
+    assert {"particle_simulator_tpu_torch.bench", "particle_simulator_tpu_torch.entry"} <= set(
+        modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r} + ['chip_smoke']:\n"
