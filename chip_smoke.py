@@ -165,7 +165,21 @@ exits non-zero without printing a result):
     finite and bit for bit the plain frame's (``physics/bucket.py:
     run_frame_bucket``) on the same tensors, and ``dryrun_multichip(n)`` for n in
     ``DRYRUN_SHARDS``: the sharded frame (the halo kernels) bit for bit
-    against the one-device frame (the classic kernels).
+    against the one-device frame (the classic kernels);
+23. the main path at the sizes of the JAX package's recorded runs
+    (``SCALE_RUNS``, bench.py's commands of BASELINE.md's N-scaling record):
+    the port's bench with ``--per-frame`` on the dense grid at
+    ``--particles 4194304`` (1024x512x8) and ``16000000`` (2048x1024x8,
+    16,728,096 live), the 16M grid ``--sharded`` on a (2, 2) mesh of the
+    one card, and the user scene at 4M (a 2048 x 2048 lattice on a 2048 x
+    2048 x 16 grid) with ``--ext-io off`` and ``compact``; each row checked
+    and held as phase 22's rows (rows 1-3 dense, 1h, 7, 8 sharded, 1u, 2, 3
+    and 5 on the user scene), each kernel of its path timed at the row's
+    state beside its bound, the device-memory peaks of the run and of the
+    holds, and the seconds of the load, the frames and the holds; then a
+    Simulator serving the 4M user scene with PS_EXT_IO=compact holds its
+    readback (``readback_check``: the wire bytes against the device pack
+    of a copy and its numpy pack).
 
 Every child process (the headless editors of phases 4, 11, 14 and 20, the
 web editor and the daemons of phase 21) prints the modules of jax or of the
@@ -181,8 +195,10 @@ not counted, and their errors go into the kernels line's ``max_abs_err``.
 
 On a machine with more than one card, phases 10, 11 and 22's ``--sharded``
 run once more on a mesh of every card, one shard a card, and phase 20 with
-one process a card over NCCL (``multi_card``;
-``scripts/torch_multicard_chip.py`` runs only these).
+one process a card over NCCL; then phase 23's dense 16M row on the first
+card, its sharded 16M row on the mesh of every card and phase 20's sharded
+frame at the 16M grid over NCCL, their three rates on one line
+(``multi_card``; ``scripts/torch_multicard_chip.py`` runs only these).
 
 The last three lines are the card's ``nvidia-smi`` line, the kernels JSON
 line and the result line. In the kernels line ``launches`` is the count of
@@ -190,8 +206,8 @@ the served slice that runs the kernel, ``launches_scripts`` that of
 phases 15-19, each counted from 0 around its own run, and
 ``launches_multiprocess`` that of phase 20's two daemon processes (each
 counts from its start), summed, ``launches_config5`` that of phase 21's
-daemon and ``launches_bench`` that of phase 22's runs, summed. It exits
-non-zero when
+daemon, ``launches_bench`` that of phase 22's runs and ``launches_scale``
+that of phase 23's rows, each summed. It exits non-zero when
 ``torch.cuda.is_available()`` is false.
 """
 
@@ -1264,14 +1280,15 @@ def phase_sharded_frame(device, cfg, frames: int, steps: int, timed: int, mesh=N
     return line
 
 
-def user_scene():
-    """``bench.py --user-scene`` at 1M: a 1000 x 1000 hex lattice at 1.1 r0
-    filling half of its box's side, 100 steps a frame; ``_grid_for`` puts it
-    on a 1024 x 1024 x 16 grid, 27% of whose 8-row tiles are live at 8 lane
-    chunks."""
+def user_scene(side: int = 1000):
+    """``bench.py --user-scene`` at ``side`` squared particles: a hex lattice
+    at 1.1 r0 filling half of its box's side, 100 steps a frame. At 1M (the
+    default) ``_grid_for`` puts it on a 1024 x 1024 x 16 grid, 27% of whose
+    8-row tiles are live at 8 lane chunks; at 4M (side 2048) on 2048 x 2048
+    x 16, also at 8."""
     from particle_simulator_tpu_torch.scenes.library import _scene
 
-    return _scene(1000, 1000, distance_factor=1.1, speed=1.0, box_fill=0.5)
+    return _scene(side, side, distance_factor=1.1, speed=1.0, box_fill=0.5)
 
 
 def same_state(got, ref, label: str) -> float:
@@ -1486,12 +1503,24 @@ def compare_readback(got_bytes: bytes, want_bytes: bytes, held, copy) -> None:
             raise AssertionError(f"the next frame wrote the held state's {name}")
 
 
+def numpy_pack(state) -> np.ndarray:
+    """The live particles of a (BY, BX, CAP) grid on the host in wire order
+    (buckets row-major, slots ascending), by numpy alone: the reckoning the
+    device pack (``ops/readback.py:dense_readback``) is held against."""
+    from particle_simulator_tpu_torch.engine.state import state_to_numpy
+
+    parts = state_to_numpy(state)
+    return parts[parts["ty"] >= 0]
+
+
 def readback_check(sim) -> dict:
     """Frame k on a loaded Simulator, a synchronous host copy of its state,
-    a ReadbackTicket started on it, frame k+1; then ``compare_readback``."""
+    a ReadbackTicket started on it, frame k+1; then ``compare_readback``,
+    and the ticket's wire bytes against the copy's ``numpy_pack``."""
     import torch
 
     from particle_simulator_tpu_torch.engine.state import ParticleState
+    from particle_simulator_tpu_torch.io.frame import Frame
 
     sim.frame_async()
     copy = ParticleState(*(a.to("cpu", copy=True) for a in sim.state))
@@ -1503,6 +1532,8 @@ def readback_check(sim) -> dict:
         torch.cuda.synchronize()
     want = sim.read_frame(copy.to(sim.state.x.device))
     compare_readback(got.bytes, want.bytes, ticket.state, copy)
+    if got.bytes != Frame.from_particles(sim.meta_record, numpy_pack(copy), owned=True).bytes:
+        raise AssertionError("the Simulator's wire bytes differ from the numpy pack")
     return {"active_kernel": kernel, "particles": got.particle_count}
 
 
@@ -2234,20 +2265,13 @@ def multiprocess_frame_child(workdir: str, cfg, n_shards: int) -> int:
     return 1 if line["foreign_modules"] else 0
 
 
-def phase_multiprocess(cfg, workdir: str, world: int, n_shards: int, own_cards: bool,
-                       beside: dict):
-    """Phase 20: ``world`` processes over one global mesh of ``n_shards``
-    shards, sharing the first card over gloo (host-staged ring) or, with
-    ``own_cards``, a card each over NCCL. The dense scene's sharded frame
-    against ``run_frame_bucket_cuda`` computed here; then the 1024x1024
-    editor lattice served for ``MP_SERVE_FRAMES`` frames by ``world`` daemon
-    processes started through ``scripts/torch_launch_multihost.sh``, to the
-    port's headless editor. Every process holds the halo kernels against
-    their plain versions on its own blocks, as loaded and after its frames
-    (``hold_halo``; the daemons through ``--inspect``). ``beside`` is the
-    single-controller mesh's serve of the same lattice (``phase_slice``'s
-    line): its period is printed next to this one's, and its particle count
-    per frame must be this serve's."""
+def multiprocess_frame(cfg, workdir: str, world: int, n_shards: int, own_cards: bool) -> dict:
+    """Phase 20's sharded frame: the dense scene of grid ``cfg`` in ``world``
+    processes (``python chip_smoke.py --child-frame ...``) over one global
+    mesh of ``n_shards`` shards, sharing the first card over gloo or, with
+    ``own_cards``, a card each over NCCL; rank 0's gathered grid bit for bit
+    against ``run_frame_bucket_cuda`` computed here. Returns the printed
+    line and every process's ``hold_halo`` lines."""
     import torch
 
     from particle_simulator_tpu_torch.bench import dense_grid_scene
@@ -2256,14 +2280,11 @@ def phase_multiprocess(cfg, workdir: str, world: int, n_shards: int, own_cards: 
         SimParams,
         state_from_numpy,
     )
-    from particle_simulator_tpu_torch.io.transport import Disconnected, Reader
     from particle_simulator_tpu_torch.ops.bucket_cuda import run_frame_bucket_cuda
 
     backend = "nccl" if own_cards else "gloo"
     here = os.path.dirname(os.path.abspath(__file__))
     label = f"multi-process ({world} processes, {backend})"
-
-    # the sharded frame, bit for bit against one device
     parts, meta, live = dense_grid_scene(cfg)
     state = state_from_numpy(parts, cfg.capacity, "cuda").reshape(cfg.grid_shape)
     pv = SimParams.from_record(meta).vector("cuda")
@@ -2276,6 +2297,7 @@ def phase_multiprocess(cfg, workdir: str, world: int, n_shards: int, own_cards: 
         state = run_frame_bucket_cuda(state, pv, MP_STEPS, cfg.move_every)
     torch.cuda.synchronize()
     single_ms = (time.perf_counter() - t0) * 1e3 / MP_TIMED
+    del state
     coord = f"file://{workdir}/frame_store"
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
@@ -2296,6 +2318,31 @@ def phase_multiprocess(cfg, workdir: str, world: int, n_shards: int, own_cards: 
                   "steps_per_frame": MP_STEPS, **identity, "seconds": frame_s,
                   "single_device_frame_ms": single_ms, "processes": lines}
     print("multi-process frame: " + json.dumps(frame_line), flush=True)
+    return {"line": frame_line, "held": held}
+
+
+def phase_multiprocess(cfg, workdir: str, world: int, n_shards: int, own_cards: bool,
+                       beside: dict):
+    """Phase 20: ``world`` processes over one global mesh of ``n_shards``
+    shards, sharing the first card over gloo (host-staged ring) or, with
+    ``own_cards``, a card each over NCCL. The dense scene's sharded frame
+    against ``run_frame_bucket_cuda`` computed here (``multiprocess_frame``);
+    then the 1024x1024
+    editor lattice served for ``MP_SERVE_FRAMES`` frames by ``world`` daemon
+    processes started through ``scripts/torch_launch_multihost.sh``, to the
+    port's headless editor. Every process holds the halo kernels against
+    their plain versions on its own blocks, as loaded and after its frames
+    (``hold_halo``; the daemons through ``--inspect``). ``beside`` is the
+    single-controller mesh's serve of the same lattice (``phase_slice``'s
+    line): its period is printed next to this one's, and its particle count
+    per frame must be this serve's."""
+    from particle_simulator_tpu_torch.io.transport import Disconnected, Reader
+
+    backend = "nccl" if own_cards else "gloo"
+    here = os.path.dirname(os.path.abspath(__file__))
+    label = f"multi-process ({world} processes, {backend})"
+    frame = multiprocess_frame(cfg, workdir, world, n_shards, own_cards)
+    frame_line, held = frame["line"], frame["held"]
 
     # the serve, through the launcher
     port = _free_port()
@@ -2572,6 +2619,8 @@ BENCH_KEYS = {
     "dense": _BENCH_COMMON | {"live_fraction_end"},
     "per-frame": _BENCH_COMMON | {"live_fraction_end", "frame_s", "frame_s_series"},
     "sharded": _BENCH_COMMON | {"live_fraction_end", "sharded_mesh"},
+    "sharded per-frame": _BENCH_COMMON | {"live_fraction_end", "sharded_mesh", "frame_s",
+                                          "frame_s_series"},
     "user": _BENCH_COMMON | {"scene", "readback_ms", "readback_k", "readback_ncap", "grid",
                              "lane_chunks", "ext_io"},
 }
@@ -2677,6 +2726,38 @@ def bench_checks(label: str, mode: str, rec: dict, launches: dict, path, particl
         raise AssertionError(f"bench {label}: a kernel of another path launched: {launches}")
 
 
+def bench_row(table: dict, label: str, device: str, size, devices, hold_cls, **hold_kw):
+    """One row of ``table`` (``BENCH_RUNS`` or ``SCALE_RUNS``: label -> (key
+    set, the kernels of its path, the bench's arguments)) through the port's
+    bench in this process, ``size`` appended to its arguments, ``--sharded``
+    over ``devices``, with a ``hold_cls`` hold (``BenchHold`` or a subclass,
+    given ``hold_kw``) as the bench's ``inspect`` hook. The line must pass
+    ``bench_checks``, the hold must have held two states, and PS_EXT_IO must
+    be as it was. Returns the record, the run's launches, the hold and the
+    argument list."""
+    import torch
+
+    from particle_simulator_tpu_torch import bench
+
+    mode, path, args = table[label]
+    argv = [*args, "--torch-device", device, *size]
+    parsed = bench.parser().parse_args(argv)
+    mesh = bench.bench_mesh(torch.device(device), devices) if parsed.sharded else None
+    hold = hold_cls(ext=parsed.ext_io if parsed.ext_io in BENCH_EXT else None, mesh=mesh,
+                    cfg=bench.dense_grid_config(parsed.particles, parsed.fill), **hold_kw)
+    ext_io = os.environ.get("PS_EXT_IO")
+    with counted_launches() as launches:
+        rec = bench.run(argv, devices=devices, inspect=hold)
+    if os.environ.get("PS_EXT_IO") != ext_io:
+        raise AssertionError(f"bench {label} left PS_EXT_IO at "
+                             f"{os.environ.get('PS_EXT_IO')!r}, not {ext_io!r}")
+    bench_checks(label, mode, rec, launches, path if device == "cuda" else (),
+                 bench_particles(parsed), device, mesh)
+    if len(hold.held) != 2:
+        raise AssertionError(f"bench {label}: held {len(hold.held)} states, not 2")
+    return rec, launches, hold, argv
+
+
 def phase_bench(device: str = "cuda", runs=tuple(BENCH_RUNS), size=(), devices=None) -> dict:
     """Phase 22: the port's bench (``particle_simulator_tpu_torch/bench.py``)
     in this process, once in each mode of ``runs``, at bench.py's default
@@ -2686,31 +2767,13 @@ def phase_bench(device: str = "cuda", runs=tuple(BENCH_RUNS), size=(), devices=N
     velocities); every kernel the run launched is held bit for bit against
     its plain version on the bench's states as loaded and after the last
     frame (``BenchHold``, whose launches are not counted); PS_EXT_IO is as
-    it was after each run. Returns the records, the launches summed over
-    the runs and each kernel's largest error."""
-    import torch
-
-    from particle_simulator_tpu_torch import bench
-
+    it was after each run (``bench_row``). Returns the records, the launches
+    summed over the runs and each kernel's largest error."""
     records, total = {}, {}
     err = dict.fromkeys(BenchHold().err, 0.0)
     for label in runs:
-        mode, path, args = BENCH_RUNS[label]
-        argv = [*args, "--torch-device", device, *size]
-        parsed = bench.parser().parse_args(argv)
-        mesh = bench.bench_mesh(torch.device(device), devices) if parsed.sharded else None
-        hold = BenchHold(ext=parsed.ext_io if parsed.ext_io in BENCH_EXT else None, mesh=mesh,
-                         cfg=bench.dense_grid_config(parsed.particles, parsed.fill))
-        ext_io = os.environ.get("PS_EXT_IO")
-        with counted_launches() as launches:
-            rec = bench.run(argv, devices=devices, inspect=hold)
-        if os.environ.get("PS_EXT_IO") != ext_io:
-            raise AssertionError(f"bench {label} left PS_EXT_IO at "
-                                 f"{os.environ.get('PS_EXT_IO')!r}, not {ext_io!r}")
-        bench_checks(label, mode, rec, launches, path if device == "cuda" else (),
-                     bench_particles(parsed), device, mesh)
-        if len(hold.held) != 2:
-            raise AssertionError(f"bench {label}: held {len(hold.held)} states, not 2")
+        rec, launches, hold, argv = bench_row(BENCH_RUNS, label, device, size, devices,
+                                              BenchHold)
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         for k, v in hold.err.items():
@@ -2755,21 +2818,299 @@ def phase_entry(device: str = "cuda", shards=DRYRUN_SHARDS) -> dict:
     return line
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the main path at the sizes of the JAX package's recorded runs
+# ---------------------------------------------------------------------------
+
+# bench.py's commands of BASELINE.md's N-scaling record, with --per-frame: the
+# dense grid at 4M (1024x512x8) and 16M (2048x1024x8), the user scene at 4M
+# (a 2048 x 2048 lattice)
+SCALE_4M = ("--particles", "4194304", "--frames", "24", "--per-frame")
+SCALE_16M = ("--particles", "16000000", "--frames", "24", "--per-frame")
+SCALE_USER = ("--user-scene", "--particles", "4194304", "--frames", "10")
+# phase 23's rows: label -> (key set, the kernels of its path, the bench's arguments)
+SCALE_RUNS = {
+    "dense 4M": ("per-frame", CONFIG5_PATH, SCALE_4M),
+    "dense 16M": ("per-frame", CONFIG5_PATH, SCALE_16M),
+    "sharded 16M": ("sharded per-frame", HALO_KERNELS, (*SCALE_16M, "--sharded")),
+    "user 4M off": ("user", CONFIG5_PATH, (*SCALE_USER, "--ext-io", "off")),
+    "user 4M compact": ("user", ("step_compact", "dest", "place"),
+                        (*SCALE_USER, "--ext-io", "compact")),
+}
+# the row after which a Simulator serving the same scene holds its readback
+SCALE_READBACK = "user 4M compact"
+SCALE_REPS = 10
+
+
+def not_timed(fn, reps: int) -> None:
+    """``cuda_ms``'s stand-in on the CPU: runs ``fn`` once and measures
+    nothing (a CPU run has no device time to give)."""
+    fn()
+    return None
+
+
+def device_peak() -> int | None:
+    """The largest ``torch.cuda.max_memory_allocated()`` over the visible
+    cards since their last reset, each card reset again; None without a
+    card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return None
+    peak = 0
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+        peak = max(peak, torch.cuda.max_memory_allocated(i))
+        torch.cuda.reset_peak_memory_stats(i)
+    return peak
+
+
+def rebucket_bounds(state, dest, out_slots: int, extra_bytes: int = 0) -> dict:
+    """The dest's and the place's bounds by the bytes this state's data
+    needs: the dest reads every slot's ty and the live slots' x and y and
+    writes every slot's id (plus ``extra_bytes`` read); the place reads
+    every id and the kept slots' 20 B and writes the ``out_slots``' 20 B.
+    On a full grid that is phase 3's 16 and 44 B a slot; on a sparse one
+    the dead slots' fields are work the data does not need."""
+    slots = state.capacity
+    live = int((state.ty >= 0).sum())
+    kept = int((dest >= 0).sum())
+    return {"dest": bound(8 * slots + 8 * live + extra_bytes),
+            "place": bound(4 * slots + 20 * kept + 20 * out_slots)}
+
+
+def scale_times(state, pv, ext, timer, mesh=None, cfg=None) -> dict:
+    """Each kernel of a bench state's path timed by ``timer`` (``cuda_ms`` on
+    the card, ``SCALE_REPS`` launches), beside its bound and the share of
+    the bound it reaches. A grid: the classic step (bound by every slot's
+    bytes and the pairs on a grid of one lane chunk, by the live slots' on
+    a sparse one:
+    ``ext_bound``), the dest, the place with ``torch.index_copy``'s time
+    beside it (their bounds by ``rebucket_bounds``), and with ``ext`` that
+    ext-layout step on the lane chunks the Simulator's load rule picks. The
+    mesh's blocks (a tuple, ``mesh`` and the global grid ``cfg`` given):
+    the halo step, dest and place on the first block, its ring filled by
+    the exchange. The caller takes the timed launches and ring traffic out
+    of the counts again."""
+    import torch
+
+    from particle_simulator_tpu_torch.engine.simulator import _lane_chunks_for
+    from particle_simulator_tpu_torch.ops import bucket_cuda as bc
+    from particle_simulator_tpu_torch.parallel import domain
+    from particle_simulator_tpu_torch.physics import bucket
+
+    reps, sass = SCALE_REPS, FORCE_LAW_COUNTS
+
+    def entry(fn, bnd, **more):
+        ms = timer(fn, reps)
+        return {"ms": ms, **bnd, "share": None if ms is None else bnd["bound_ms"] / ms, **more}
+
+    if not hasattr(state, "_fields"):  # the mesh's blocks
+        padded = domain.exchange_halo(state, mesh)[0]
+        offsets = domain.ring_plan(mesh, *state[0].x.shape[-3:-1]).offsets[0]
+        log2, pv = (cfg.bx_log2, cfg.by_log2), pv[0]
+        src = padded.capacity
+        on = torch.cuda.device(padded.x.device) if padded.x.is_cuda else contextlib.nullcontext()
+        with on:
+            dest = bc.move_dest_halo_cuda(padded, *log2, offsets)
+            rb = rebucket_bounds(padded, dest, state[0].capacity, offsets.numel() * 4)
+            kernels = {
+                "step_halo": entry(lambda: bc.bucket_step_halo_cuda(padded, pv),
+                                   bound(36 * src, ops_bound_ms(halo_pairs(padded), sass))),
+                "dest_halo": entry(lambda: bc.move_dest_halo_cuda(padded, *log2, offsets),
+                                   rb["dest"]),
+                "place_halo": entry(lambda: bc.bucket_place_halo_cuda(padded, dest),
+                                    rb["place"]),
+            }
+        return {"block": list(padded.x.shape), "kernels": kernels}
+    grid = bucket.GridConfig(*bucket.grid_log2(state), state.x.shape[-1])
+    chunks = _lane_chunks_for((state.ty >= 0).sum(-1).cpu().numpy(), grid)
+    slots = state.capacity
+    step_bound = (ext_bound(state, sass) if chunks > 1
+                  else bound(36 * slots, ops_bound_ms(bucket_pairs(state), sass)))
+    dest = bc.move_dest_cuda(state)
+    rb = rebucket_bounds(state, dest, slots)
+    _, library_ms = place_library_call(state, dest, reps, timer=timer)
+    kernels = {
+        "step": entry(lambda: bc.bucket_step_cuda(state, pv), step_bound),
+        "dest": entry(lambda: bc.move_dest_cuda(state), rb["dest"]),
+        "place": entry(lambda: bc.bucket_place_cuda(state, dest), rb["place"],
+                       library_ms=library_ms),
+    }
+    if ext is not None and chunks > 1:
+        aux = bucket.ext_step_aux(state, pv, chunks, 8)
+        pair = bc.ext_pair(state)
+        kernels[BENCH_EXT[ext]] = entry(
+            lambda: bc.bucket_step_ext_cuda(pair, aux, ext == "compact"), ext_bound(state, sass))
+    return {"lane_chunks": chunks, "kernels": kernels}
+
+
+class ScaleHold(BenchHold):
+    """``BenchHold`` for phase 23. On the first state it sees (the bench's
+    state as loaded) it also times each kernel of the path
+    (``scale_times``); it keeps the device-memory peak of the bench's run
+    apart from its own (``device_peak``, read and reset as each hold begins
+    and ends) and the clock of each hold. Its launches and ring traffic are
+    not counted."""
+
+    def __init__(self, ext=None, mesh=None, cfg=None, timer=not_timed):
+        super().__init__(ext, mesh, cfg)
+        self.timer = timer
+        self.peaks = {"run": None, "holds": None}  # bytes; None without a card
+        self.clock = []  # (entered, left) of each hold, time.perf_counter()
+        self.times = None
+
+    def peak(self, kind: str) -> None:
+        """Fold ``device_peak()`` into the ``kind`` peak."""
+        peak = device_peak()
+        if peak is not None:
+            self.peaks[kind] = max(self.peaks[kind] or 0, peak)
+
+    def __call__(self, label: str, state, pv) -> None:
+        from particle_simulator_tpu_torch.ops import bucket_cuda as bc
+        from particle_simulator_tpu_torch.parallel import domain
+
+        entered = time.perf_counter()
+        self.peak("run")
+        launches, exchange = dict(bc.LAUNCHES), dict(domain.EXCHANGE)
+        super().__call__(label, state, pv)
+        if self.times is None:
+            self.times = scale_times(state, pv, self.ext, self.timer, self.mesh, self.cfg)
+        bc.LAUNCHES.update(launches)
+        domain.EXCHANGE.update(exchange)
+        self.peak("holds")
+        self.clock.append((entered, time.perf_counter()))
+
+
+def scale_readback(args) -> dict:
+    """``readback_check`` on a Simulator serving the bench's user scene of
+    the parsed ``args`` under their ``--ext-io``: the ticket's wire bytes
+    against the device pack of a copy and against its ``numpy_pack``."""
+    from particle_simulator_tpu_torch import bench
+    from particle_simulator_tpu_torch.engine.simulator import Simulator
+
+    side = int(round(bench_particles(args) ** 0.5))
+    frame = user_scene(side)
+    frame.metadata.steps_per_frame = args.steps
+    t0 = time.perf_counter()
+    with bench.ext_io_env(args.ext_io):
+        sim = Simulator(device=bench.torch_device(args.torch_device))
+        sim.load_frame(frame)
+        load_s = time.perf_counter() - t0
+        line = readback_check(sim)
+    if line["particles"] != side * side:
+        raise AssertionError(f"readback: {line['particles']} particles, not {side * side}")
+    return {**line, "grid": list(sim.grid.grid_shape), "readback_k": sim._readback_k,
+            "readback_ncap": sim._readback_ncap, "load_s": load_s,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_scale(device: str = "cuda", runs=tuple(SCALE_RUNS), size=(), devices=None) -> dict:
+    """Phase 23: the port's bench at the sizes of the JAX package's recorded
+    runs (``SCALE_RUNS``), each row as phase 22 runs its rows (``bench_row``:
+    bench.py's keys, a step launch a step per block and no kernel of another
+    path, every kernel held bit for bit on the states as loaded and after
+    the last frame, PS_EXT_IO restored) with a ``ScaleHold``: each kernel
+    timed at the row's state with its bound, the device-memory peaks of the
+    run and of the holds, the seconds of the load, the frames and the holds.
+    After ``SCALE_READBACK``, ``scale_readback`` on the same scene. The
+    previous row's tensors are freed before each row. One line a row;
+    returns the records, the launches summed over the rows, each kernel's
+    largest error and the lines."""
+    import gc
+
+    import torch
+
+    from particle_simulator_tpu_torch import bench
+
+    timer = cuda_ms if device == "cuda" else not_timed
+    records, total, lines = {}, {}, {}
+    err = dict.fromkeys(ScaleHold().err, 0.0)
+    for label in runs:
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        device_peak()
+        t0 = time.perf_counter()
+        rec, launches, hold, argv = bench_row(SCALE_RUNS, label, device, size, devices,
+                                              ScaleHold, timer=timer)
+        t1 = time.perf_counter()
+        hold.peak("run")
+        (in0, out0), (in1, out1) = hold.clock
+        kernels = hold.times["kernels"]
+        for k, v in kernels.items():
+            v["launches"] = launches[k]
+        line = {"record": rec, "argv": argv,
+                "grid": rec.get("grid", list(hold.cfg.grid_shape)), "live": rec["particles"],
+                "lane_chunks": hold.times.get("lane_chunks"), "block": hold.times.get("block"),
+                "launches": {k: v for k, v in launches.items() if v},
+                "max_abs_err": {k: hold.err[k] for k in kernels}, "kernels": kernels,
+                "memory_peak_bytes": hold.peaks,
+                "seconds": {"load": in0 - t0, "frames": in1 - out0,
+                            "holds": out0 - in0 + out1 - in1, "end": t1 - out1, "row": t1 - t0},
+                "held": hold.held}
+        del hold
+        if label == SCALE_READBACK:
+            line["readback"] = scale_readback(bench.parser().parse_args(argv))
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        for k, v in line["max_abs_err"].items():
+            err[k] = max(err[k], v)
+        records[label], lines[label] = rec, line
+        print(f"scale {label}: " + json.dumps(line), flush=True)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"records": records, "launches": total, "err": err, "lines": lines}
+
+
+def multi_card_scale(device) -> dict:
+    """Phase 23 across every card: the dense 16M row on the first card and
+    the sharded 16M row on the single-controller mesh of every card (one
+    shard a card), then phase 20's sharded frame at the 16M grid with one
+    process a card over NCCL; one line with the three rates. Returns the
+    halo kernels' largest errors."""
+    import torch
+
+    from particle_simulator_tpu_torch import bench
+    from particle_simulator_tpu_torch.ops import build
+
+    sc = phase_scale(device, runs=("dense 16M", "sharded 16M"))
+    n = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as workdir:
+        mp = multiprocess_frame(bench.dense_grid_config(16_000_000), workdir, world=n,
+                                n_shards=n, own_cards=True)
+    one, cards = sc["records"]["dense 16M"], sc["records"]["sharded 16M"]
+    rank0 = mp["line"]["processes"][0]
+    line = {"grid": mp["line"]["grid"], "particles": one["particles"],
+            "one_card_sim_steps_per_sec": one["sim_steps_per_sec"],
+            "single_controller": {"mesh": cards["sharded_mesh"],
+                                  "sim_steps_per_sec": cards["sim_steps_per_sec"]},
+            "nccl_processes": {"world": n, "frame_ms": rank0["frame_ms"],
+                               "sim_steps_per_sec": [MP_STEPS * 1e3 / ms
+                                                     for ms in rank0["frame_ms"]]}}
+    print("scale across cards: " + json.dumps(line), flush=True)
+    held = held_errors(mp["held"])
+    return {k: max(v, sc["err"][k]) for k, v in held.items()}
+
+
 def kernel_entry(name, source, replaces, launches, max_abs_err, ms, plain_ms, bnd,
                  library_ms, launches_scripts=0, launches_multiprocess=0,
-                 launches_config5=0, launches_bench=0):
+                 launches_config5=0, launches_bench=0, launches_scale=0):
     """One kernel of the kernels line. ``launches`` is the count of the
     served slice that runs the kernel; ``launches_scripts`` that of the
     scene runner's and the config scripts' path (phases 15-19);
     ``launches_multiprocess`` that of phase 20's two daemon processes,
     summed; ``launches_config5`` that of phase 21's daemon;
-    ``launches_bench`` that of phase 22's bench runs, summed."""
+    ``launches_bench`` that of phase 22's bench runs, summed;
+    ``launches_scale`` that of phase 23's rows, summed."""
     return {"name": name, "route": "cuda", "source": f"{CSRC}/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": max_abs_err,
             "ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": library_ms,
             "launches_scripts": launches_scripts,
             "launches_multiprocess": launches_multiprocess,
-            "launches_config5": launches_config5, "launches_bench": launches_bench}
+            "launches_config5": launches_config5, "launches_bench": launches_bench,
+            "launches_scale": launches_scale}
 
 
 def main() -> int:
@@ -2874,6 +3215,11 @@ def main() -> int:
     print("throughput: " + json.dumps(bn["records"]["dense"]), flush=True)
     phase_entry(device)
 
+    # 23. the main path at the JAX package's recorded scale; the sharded row
+    # on a (2, 2) mesh of the first card
+    sc = phase_scale(device, devices=[torch.device(device, 0)] * 4)
+    scl, serr = sc["launches"], sc["err"]
+
     if "jax" in sys.modules or any(m.split(".")[0] == "particle_simulator_tpu"
                                    for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
@@ -2883,22 +3229,25 @@ def main() -> int:
     ap_err = max(line["max_abs_err_v"] for line in ap.values())
     kernels = [
         kernel_entry("bucket_step", "bucket_step.cu", STEP_KERNEL, sl["launches"]["step"],
-                     max(err, hold.err["step"], c5err["step"], berr["step"]), ms["step"],
-                     ms["step_plain"], bnd["step"], None, scripted["step"],
-                     launches_config5=c5l["step"], launches_bench=bl["step"]),
+                     max(err, hold.err["step"], c5err["step"], berr["step"], serr["step"]),
+                     ms["step"], ms["step_plain"], bnd["step"], None, scripted["step"],
+                     launches_config5=c5l["step"], launches_bench=bl["step"],
+                     launches_scale=scl["step"]),
         kernel_entry("bucket_dest", "bucket_dest.cu", DEST_KERNEL, sl["launches"]["dest"],
-                     max(hold.err["dest"], c5err["dest"], berr["dest"]), ms["dest"],
-                     ms["dest_plain"], bnd["dest"], None, scripted["dest"],
-                     launches_config5=c5l["dest"], launches_bench=bl["dest"]),
+                     max(hold.err["dest"], c5err["dest"], berr["dest"], serr["dest"]),
+                     ms["dest"], ms["dest_plain"], bnd["dest"], None, scripted["dest"],
+                     launches_config5=c5l["dest"], launches_bench=bl["dest"],
+                     launches_scale=scl["dest"]),
         kernel_entry("bucket_place", "bucket_place.cu", PLACE_KERNEL, sl["launches"]["place"],
-                     max(hold.err["place"], c5err["place"], berr["place"]), ms["place"],
-                     ms["place_plain"], bnd["place"], ms["place_library"], scripted["place"],
-                     launches_config5=c5l["place"], launches_bench=bl["place"]),
+                     max(hold.err["place"], c5err["place"], berr["place"], serr["place"]),
+                     ms["place"], ms["place_plain"], bnd["place"], ms["place_library"],
+                     scripted["place"], launches_config5=c5l["place"],
+                     launches_bench=bl["place"], launches_scale=scl["place"]),
         kernel_entry("allpairs_step", "allpairs_step.cu", ALLPAIRS_KERNEL,
                      cs["launches"]["allpairs"], max(ap_err, hold.err["allpairs"]),
                      gas["ms"]["kernel"],
                      gas["ms"]["plain"], gas["bound"], gas["library_ms"], scripted["allpairs"],
-                     launches_bench=bl["allpairs"]),
+                     launches_bench=bl["allpairs"], launches_scale=scl["allpairs"]),
     ]
     hms, hbnd = halo["dense"]["ms"], halo["dense"]["bounds"]
     herr = max(line["step_max_abs_err_v"] for line in halo.values())
@@ -2906,29 +3255,35 @@ def main() -> int:
     kernels += [
         kernel_entry("bucket_step_halo", "bucket_step.cu", STEP_HALO_KERNEL,
                      msl["launches"]["step_halo"],
-                     max(herr, mp_err["step_halo"], berr["step_halo"]), hms["step"],
-                     hms["step_plain"], hbnd["step"], None,
-                     launches_multiprocess=mpl["step_halo"], launches_bench=bl["step_halo"]),
+                     max(herr, mp_err["step_halo"], berr["step_halo"], serr["step_halo"]),
+                     hms["step"], hms["step_plain"], hbnd["step"], None,
+                     launches_multiprocess=mpl["step_halo"], launches_bench=bl["step_halo"],
+                     launches_scale=scl["step_halo"]),
         kernel_entry("bucket_dest_halo", "bucket_dest.cu", DEST_HALO_KERNEL,
-                     msl["launches"]["dest_halo"], max(mp_err["dest_halo"], berr["dest_halo"]),
+                     msl["launches"]["dest_halo"],
+                     max(mp_err["dest_halo"], berr["dest_halo"], serr["dest_halo"]),
                      hms["dest"], hms["dest_plain"], hbnd["dest"], None,
-                     launches_multiprocess=mpl["dest_halo"], launches_bench=bl["dest_halo"]),
+                     launches_multiprocess=mpl["dest_halo"], launches_bench=bl["dest_halo"],
+                     launches_scale=scl["dest_halo"]),
         kernel_entry("bucket_place_halo", "bucket_place.cu", PLACE_HALO_KERNEL,
                      msl["launches"]["place_halo"],
-                     max(mp_err["place_halo"], berr["place_halo"]), hms["place"],
-                     hms["place_plain"], hbnd["place"], hms["place_library"],
-                     launches_multiprocess=mpl["place_halo"], launches_bench=bl["place_halo"]),
+                     max(mp_err["place_halo"], berr["place_halo"], serr["place_halo"]),
+                     hms["place"], hms["place_plain"], hbnd["place"], hms["place_library"],
+                     launches_multiprocess=mpl["place_halo"], launches_bench=bl["place_halo"],
+                     launches_scale=scl["place_halo"]),
     ]
     ems, ebnd = ext["user"]["ms"], ext["user"]["bound"]
     eerr = max(line["max_abs_err_v"] for line in ext.values())
     kernels += [
         kernel_entry("bucket_step_ext", "bucket_step.cu", EXT_KERNEL,
-                     esl["nocompact"]["launches"]["step_ext"], max(eerr, berr["step_ext"]),
-                     ems["ext"], ems["ext_plain"], ebnd, None, launches_bench=bl["step_ext"]),
+                     esl["nocompact"]["launches"]["step_ext"],
+                     max(eerr, berr["step_ext"], serr["step_ext"]), ems["ext"], ems["ext_plain"],
+                     ebnd, None, launches_bench=bl["step_ext"], launches_scale=scl["step_ext"]),
         kernel_entry("bucket_step_compact", "bucket_step.cu", COMPACT_KERNEL,
                      esl["compact"]["launches"]["step_compact"],
-                     max(eerr, berr["step_compact"]), ems["compact"], ems["compact_plain"], ebnd,
-                     None, launches_bench=bl["step_compact"]),
+                     max(eerr, berr["step_compact"], serr["step_compact"]), ems["compact"],
+                     ems["compact_plain"], ebnd, None, launches_bench=bl["step_compact"],
+                     launches_scale=scl["step_compact"]),
     ]
     print("library calls: bucket_step(_halo, _ext, _compact), bucket_dest(_halo), "
           "allpairs_step none (no single PyTorch call computes the Mie step, the pull-order "
@@ -2945,8 +3300,9 @@ def main() -> int:
 def multi_card(device, dense_cfg) -> dict:
     """Phases 10, 11, 22's ``--sharded`` and 20 over every card: the
     single-controller mesh's sharded frame, serve and bench, then one
-    process a card over NCCL (whose result it returns, with the bench's
-    halo holds folded into its errors)."""
+    process a card over NCCL; then phase 23's 16M rows across the cards
+    (``multi_card_scale``). Returns phase 20's result, with the bench's and
+    phase 23's halo holds folded into its errors."""
     import torch
 
     from particle_simulator_tpu_torch.ops import build
@@ -2961,7 +3317,8 @@ def multi_card(device, dense_cfg) -> dict:
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as workdir:
         mp = phase_multiprocess(dense_cfg, workdir, world=n, n_shards=n, own_cards=True,
                                 beside=msl)
-    return {**mp, "err": {k: max(v, bench_err[k]) for k, v in mp["err"].items()}}
+    scale_err = multi_card_scale(device)
+    return {**mp, "err": {k: max(v, bench_err[k], scale_err[k]) for k, v in mp["err"].items()}}
 
 
 if __name__ == "__main__":

@@ -12,8 +12,11 @@ then runs ``chip_smoke.multi_card``: the dense scene's sharded frame and the
 kernels held against their plain versions (phase 22's run), then phase 20
 with one process a card over NCCL (the
 sharded frame bit for bit against one card, the serve through
-``scripts/torch_launch_multihost.sh``). Each phase prints its JSON line; any
-failure raises. It exits non-zero with fewer than two cards.
+``scripts/torch_launch_multihost.sh``), then phase 23 at 16M particles: the
+dense row on the first card, the sharded row over every card and phase 20's
+NCCL frame at the 16M grid (``chip_smoke.multi_card_scale``). Each phase
+prints its JSON line; any failure raises. It exits non-zero with fewer than
+two cards.
 """
 
 from __future__ import annotations

@@ -88,7 +88,8 @@ def assert_envelope(got, ref):
     (GridConfig(3, 3, 16), 16),
     (GridConfig(4, 3, 12), 12),
     (GridConfig(3, 3, 8), 4),  # fill below cap: bench.py's slot order kept
-], ids=["4x4x8", "16x8x8", "8x8x16", "8x16x12", "8x8x8-fill4"])
+    (GridConfig(9, 10, 8), 8),  # --particles 4194304, BASELINE.md's 4M run
+], ids=["4x4x8", "16x8x8", "8x8x16", "8x16x12", "8x8x8-fill4", "1024x512x8-4M"])
 def test_dense_grid_scene_matches_bench_py(cfg, fill):
     """Particles and metadata bit for bit, both ways through the port's
     ``from_reference`` / ``to_reference``."""

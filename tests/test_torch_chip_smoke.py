@@ -445,10 +445,11 @@ def test_kernel_entry_keeps_the_contract_keys():
                                     None, 337_500)
     assert set(entry) == {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                           "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_scripts",
-                          "launches_multiprocess", "launches_config5", "launches_bench"}
+                          "launches_multiprocess", "launches_config5", "launches_bench",
+                          "launches_scale"}
     assert entry["launches"] == 1100 and entry["launches_scripts"] == 337_500
     assert entry["launches_multiprocess"] == 0 and entry["launches_config5"] == 0
-    assert entry["launches_bench"] == 0
+    assert entry["launches_bench"] == 0 and entry["launches_scale"] == 0
     halo = chip_smoke.kernel_entry("bucket_step_halo", "bucket_step.cu",
                                    chip_smoke.STEP_HALO_KERNEL, 1800, 0.0, 0.2, 23.4,
                                    {"bound_ms": 0.1, "bound_by": "operations"}, None,
