@@ -1,0 +1,4 @@
+"""Seconds from the process's start to the window's."""
+
+def read(run):
+    return run["setup_s"]
