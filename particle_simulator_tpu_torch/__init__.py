@@ -17,7 +17,7 @@ CompactArray (the all-pairs step).
   scenes/   <- scenes/library.py, order.py               : scene builders, order
   editor/   <- editor/*.py                               : the editor (headless, web),
                                                            numpy only (a copy)
-  utils/    <- utils/profiling.py, log.py, numfmt.py ... : StepMeter, logging, numbers
+  utils/    <- utils/profiling.py, log.py, numfmt.py ... : span recorder, logging, numbers
 
 Positions are ``torch.int32`` tensors holding the u32 fixed-point bit
 patterns: torch's CPU ``uint32`` has no add, shift or compare, while int32

@@ -25,12 +25,26 @@ steps and reads back in the same order. Each process prints a ``rank
 stats`` JSON line when it stops. Every run ends with an ``engine: foreign
 modules [...]`` line on stderr (``utils/log.py:report_foreign_modules``).
 
+``--spans PATH`` records the program's spans and counters while it serves
+and writes them at exit as JSON (``utils/profiling.py:export``). One
+frame's spans share its id (``Simulator.frame_id``): on the main thread
+``sim.frame_async``, ``sim.start_readback``, ``daemon.poll`` (the editor
+poll; its id is the next frame's, the first to answer what it read) and
+``daemon.commit`` (the hand-over to the ship queue, which blocks while it
+is full); on ``ship-rb`` ``sim.read_frame`` with ``readback.wait`` and
+``readback.unpack``; on ``ship-tx`` ``daemon.send`` (wire pack and TCP
+send). ``sim.load_frame`` (``load.grid_pick``, ``load.bucketize``,
+``load.upload``) and ``sim.update_metadata`` mark scene loads and live
+edits; the counters ``poll.superseded`` and ``readback.redo`` count the
+editor frames a poll dropped for a newer one and the widened readbacks.
+
 Run:  python -m particle_simulator_tpu_torch.engine.daemon [--addr HOST:PORT]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib
 import json
 import queue as queue_mod
@@ -54,8 +68,8 @@ from particle_simulator_tpu_torch.engine.simulator import Simulator
 from particle_simulator_tpu_torch.ops import allpairs_cuda, bucket_cuda
 from particle_simulator_tpu_torch.parallel import domain, multihost
 from particle_simulator_tpu_torch.parallel.domain import make_mesh
+from particle_simulator_tpu_torch.utils import profiling
 from particle_simulator_tpu_torch.utils.log import report_foreign_modules
-from particle_simulator_tpu_torch.utils.profiling import StepMeter
 
 
 class Frontend:
@@ -175,6 +189,16 @@ class DistributedFrontend:
             self.write_times.append(time.perf_counter())
 
 
+def rate_report(total_steps: int, steps: int, particle_steps: int, seconds: float) -> dict:
+    """The daemon's periodic ``engine: {...}`` line: the steps and
+    particle-steps of the frames shipped since the last report, over the
+    seconds since it, and the steps of every frame shipped."""
+    seconds = max(seconds, 1e-9)
+    return {"steps_per_sec": round(steps / seconds, 2),
+            "particle_steps_per_sec": round(particle_steps / seconds, 1),
+            "total_steps": total_steps}
+
+
 def main_loop(frontend: Frontend, sim: Simulator, max_frames: int | None = None,
               readback_depth: int = 1, ship_thread: bool = True) -> int:
     """The compute-frame loop. Returns the number of frames shipped.
@@ -195,10 +219,12 @@ def main_loop(frontend: Frontend, sim: Simulator, max_frames: int | None = None,
     leave the loop at the same iteration."""
     if isinstance(frontend, DistributedFrontend):
         ship_thread = False
-    meter = StepMeter()
     pending: deque = deque()  # tickets awaiting shipment, oldest first
     shipped = 0  # frames written to the wire (owned by the send stage)
-    next_report = time.monotonic() + 30.0
+    # the send stage's counts: every shipped frame's steps, and the steps
+    # and particle-steps since the last report
+    total_steps = steps = particle_steps = 0
+    last_report = time.monotonic()
 
     def ship_readback(ticket, meta):
         """Stage 1: wait out the device->host copy; None when the budget is
@@ -207,19 +233,25 @@ def main_loop(frontend: Frontend, sim: Simulator, max_frames: int | None = None,
             return None
         return sim.read_frame(ticket, meta=meta)
 
-    def ship_send(frame) -> None:
+    def ship_send(frame, frame_id) -> None:
         """Stage 2: wire pack + TCP send + accounting; sole writer of
         ``shipped``."""
-        nonlocal shipped, next_report
+        nonlocal shipped, total_steps, steps, particle_steps, last_report
         if frame is None or (max_frames is not None and shipped >= max_frames):
             return
-        frontend.write(frame)
+        with profiling.annotate("daemon.send", frame_id):
+            frontend.write(frame)
         shipped += 1
-        meter.tick(frame.metadata.steps_per_frame, frame.particle_count)
+        n = frame.metadata.steps_per_frame
+        total_steps += n
+        steps += n
+        particle_steps += n * frame.particle_count
+        now = time.monotonic()
         # every 64 frames, but at least every 30 s
-        if shipped % 64 == 0 or time.monotonic() >= next_report:
-            print(f"engine: {meter.report()} [{sim.active_kernel}]", file=sys.stderr)
-            next_report = time.monotonic() + 30.0
+        if shipped % 64 == 0 or now >= last_report + 30.0:
+            rates = rate_report(total_steps, steps, particle_steps, now - last_report)
+            print(f"engine: {rates} [{sim.active_kernel}]", file=sys.stderr)
+            last_report, steps, particle_steps = now, 0, 0
 
     # two single-consumer FIFO stages keep the wire order; bounded queues
     # keep backpressure (each pending ticket pins device and host buffers)
@@ -243,7 +275,7 @@ def main_loop(frontend: Frontend, sim: Simulator, max_frames: int | None = None,
                 try:
                     frame = ship_readback(*item)
                     if frame is not None:  # None on send_q means shutdown
-                        send_q.put(frame)
+                        send_q.put((frame, item[0].frame))
                 except Exception as e:  # surface, then stop shipping
                     print(f"engine: ship readback failed: {e!r}", file=sys.stderr)
                     frontend.is_connected = False
@@ -252,13 +284,13 @@ def main_loop(frontend: Frontend, sim: Simulator, max_frames: int | None = None,
         def _send_loop() -> None:
             failed = False
             while True:
-                frame = send_q.get()
-                if frame is None:
+                item = send_q.get()
+                if item is None:
                     return
                 if failed:
                     continue
                 try:
-                    ship_send(frame)
+                    ship_send(*item)
                 except Exception as e:  # surface, then stop shipping
                     print(f"engine: ship send failed: {e!r}", file=sys.stderr)
                     frontend.is_connected = False
@@ -272,10 +304,11 @@ def main_loop(frontend: Frontend, sim: Simulator, max_frames: int | None = None,
             w.start()
 
     def commit_ship(ticket, meta) -> None:
-        if ship_q is not None:
-            ship_q.put((ticket, meta))
-        else:
-            ship_send(ship_readback(ticket, meta))
+        with profiling.annotate("daemon.commit", ticket.frame):
+            if ship_q is not None:
+                ship_q.put((ticket, meta))
+            else:
+                ship_send(ship_readback(ticket, meta), ticket.frame)
 
     def ship_now() -> None:
         """Ship the current state (prime / scene-reset echo), with the
@@ -306,7 +339,8 @@ def main_loop(frontend: Frontend, sim: Simulator, max_frames: int | None = None,
             sim.frame_async()
             dispatched_meta = sim.meta_record.copy()
 
-            incoming = frontend.read()
+            with profiling.annotate("daemon.poll", sim.frame_id + 1):
+                incoming = frontend.read()
             if incoming is not None:
                 if incoming.particle_count == 0:
                     sim.update_metadata(incoming)  # applies to the next dispatch
@@ -493,6 +527,10 @@ def main(argv=None) -> int:
     ap.add_argument("--torch-device", choices=("cuda", "cpu"), default="cuda",
                     help="where the scene lives: the card (the kernels) or the "
                          "CPU (their plain versions)")
+    ap.add_argument("--spans", default=None, metavar="PATH",
+                    help="record the program's spans and counters while serving "
+                         "and write them to PATH as JSON at exit (PATH.rank<N> "
+                         "in a multi-process run)")
     ap.add_argument("--inspect", default=None, metavar="MODULE:FUNCTION",
                     help="a check of the served state: FUNCTION(label, simulator) "
                          "runs with the first scene as loaded and after the last "
@@ -505,8 +543,16 @@ def main(argv=None) -> int:
     if multihost.init_distributed(args.torch_device):
         print(f"engine: distributed {multihost.describe(args.torch_device)}", file=sys.stderr)
     try:
-        return _run(args, hook)
+        with profiling.recording() if args.spans else contextlib.nullcontext():
+            return _run(args, hook)
     finally:
+        if args.spans:
+            # every process of a multi-process run writes its own file
+            path = (args.spans if multihost.process_count() == 1
+                    else f"{args.spans}.rank{multihost.process_index()}")
+            with open(path, "w") as f:
+                json.dump(profiling.export(), f)
+            print(f"engine: spans written to {path}", file=sys.stderr)
         if dist.is_initialized():
             dist.destroy_process_group()
         report_foreign_modules("engine")

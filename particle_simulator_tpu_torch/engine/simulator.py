@@ -24,6 +24,16 @@ Counterpart of ``particle_simulator_tpu/engine/simulator.py``:
   ticket's CUDA event, widening the sticky pack sizes and retrying when the
   scene outgrew them.
 
+Frame ids: each ``load_frame`` and each ``frame_async`` takes the next
+number (``frame_id``), and a readback ticket carries the id of the state it
+reads, so the spans of one frame (``utils/profiling.py:annotate``; nothing
+is recorded unless recording is on) share it: ``sim.load_frame`` (with
+``load.grid_pick``, ``load.bucketize``, ``load.upload``),
+``sim.update_metadata``, ``sim.frame_async``, ``sim.start_readback`` and
+``sim.read_frame`` (with ``readback.wait``, the wait for the copy, and
+``readback.unpack``, the host work after it). The counter ``readback.redo``
+counts the readbacks widened and done again.
+
 Devices: a ``GPU`` request runs the CUDA kernels on a CUDA ``Simulator``;
 ``CPU_THREAD_POOL`` and ``CPU_MAIN_THREAD`` move the scene to CPU tensors,
 run the plain PyTorch versions eagerly on the caller's thread and echo the
@@ -88,6 +98,7 @@ from particle_simulator_tpu_torch.physics.bucket import (
     GridConfig,
     bucketize_numpy,
 )
+from particle_simulator_tpu_torch.utils import profiling
 
 
 class ReadbackTicket:
@@ -96,18 +107,20 @@ class ReadbackTicket:
     ``scalars`` = ``[max_occupancy, total]`` and ``packed`` = the five
     device-packed fields, sized ``k``/``ncap``; for a CompactArray state,
     ``scalars`` is None and ``packed`` is the whole state. ``state`` is kept
-    for the widen-and-retry path. On a process other than the frame owner
-    of a multi-process mesh every field is None."""
+    for the widen-and-retry path. ``frame`` is the id of the frame whose
+    state it reads (``Simulator.frame_id``). On a process other than the
+    frame owner of a multi-process mesh every field but ``frame`` is None."""
 
-    __slots__ = ("state", "scalars", "packed", "k", "ncap", "event")
+    __slots__ = ("state", "scalars", "packed", "k", "ncap", "event", "frame")
 
-    def __init__(self, state, scalars, packed, k, ncap, event=None):
+    def __init__(self, state, scalars, packed, k, ncap, event=None, frame=None):
         self.state = state
         self.scalars = scalars
         self.packed = packed
         self.k = k
         self.ncap = ncap
         self.event = event
+        self.frame = frame
 
 
 def compact_capacity(live: int) -> int:
@@ -253,6 +266,9 @@ class Simulator:
         # "bucket-ext-<where>", "bucket-compact-<where>", "allpairs-<where>"
         # or "sharded-<where>", where is "cuda" or "torch-cpu"
         self.active_kernel: str | None = None
+        # the id of the frame the state holds: each load_frame and each
+        # frame_async takes the next
+        self.frame_id = -1
 
     def _target_device(self, requested: Device) -> tuple[torch.device, Device]:
         """The tensor device and the echoed ``Device`` of a request: ``GPU``
@@ -281,6 +297,11 @@ class Simulator:
 
     def load_frame(self, frame: Frame) -> None:
         """Full scene reset from a non-empty editor frame."""
+        self.frame_id += 1
+        with profiling.annotate("sim.load_frame", self.frame_id):
+            self._load(frame)
+
+    def _load(self, frame: Frame) -> None:
         meta = frame.metadata
         rec = meta.copy()
         data_structure, requested = meta.data_structure, meta.device
@@ -306,39 +327,43 @@ class Simulator:
         if self.data_structure == DataStructure.COMPACT_ARRAY:
             capacity = compact_capacity(len(live))
             self.grid = self.base_grid
-            self.state = state_from_numpy(live, capacity, self.run_device)
+            with profiling.annotate("load.upload"):
+                self.state = state_from_numpy(live, capacity, self.run_device)
             desc = f"compact capacity {capacity}"
         else:
-            g = _grid_for(
-                live, self.base_grid, meta.box_width,
-                meta.species(0).force0_r(), box_height=meta.box_height,
-            )
-            if self.mesh is not None:
-                # grow bx until it tiles the mesh's (power-of-two) x axis;
-                # tombstone rows pad the y axis
-                while g.bx % self.mesh.shape[1]:
-                    g = GridConfig(g.bx_log2 + 1, g.by_log2 + 1, g.cap, g.move_every)
+            with profiling.annotate("load.grid_pick"):
+                g = _grid_for(
+                    live, self.base_grid, meta.box_width,
+                    meta.species(0).force0_r(), box_height=meta.box_height,
+                )
+                if self.mesh is not None:
+                    # grow bx until it tiles the mesh's (power-of-two) x axis;
+                    # tombstone rows pad the y axis
+                    while g.bx % self.mesh.shape[1]:
+                        g = GridConfig(g.bx_log2 + 1, g.by_log2 + 1, g.cap, g.move_every)
             self.grid = g
-            # per-bucket placed counts seed the readback sizes (bucketize
-            # fills slots ascending and drops past cap)
-            bxi = (live["x"] >> np.uint32(32 - g.bx_log2)).astype(np.int64)
-            byi = (live["y"] >> np.uint32(32 - g.by_log2)).astype(np.int64)
-            occ = np.minimum(np.bincount(bxi + byi * g.bx, minlength=g.buckets), g.cap)
-            self._readback_k = pow2_at_least(int(occ.max(initial=0)))
-            self._readback_ncap = pow2_at_least(len(live))
-            self._readback_low_streak = 0
-            self._lane_chunks = _lane_chunks_for(occ.reshape(g.by, g.bx), g)
-            layout = bucketize_numpy(live, g)
+            with profiling.annotate("load.bucketize"):
+                # per-bucket placed counts seed the readback sizes (bucketize
+                # fills slots ascending and drops past cap)
+                bxi = (live["x"] >> np.uint32(32 - g.bx_log2)).astype(np.int64)
+                byi = (live["y"] >> np.uint32(32 - g.by_log2)).astype(np.int64)
+                occ = np.minimum(np.bincount(bxi + byi * g.bx, minlength=g.buckets), g.cap)
+                self._readback_k = pow2_at_least(int(occ.max(initial=0)))
+                self._readback_ncap = pow2_at_least(len(live))
+                self._readback_low_streak = 0
+                self._lane_chunks = _lane_chunks_for(occ.reshape(g.by, g.bx), g)
+                layout = bucketize_numpy(live, g)
             desc = f"grid {g.bx}x{g.by}x{g.cap} lane_chunks {self._lane_chunks}"
-            if self.mesh is None:
-                self.state = state_from_numpy(layout, g.capacity, self.run_device).reshape(
-                    g.grid_shape)
-            else:
-                state = state_from_numpy(layout, g.capacity).reshape(g.grid_shape)
-                self.state = shard_state(pad_rows_for_mesh(state, self.mesh)[0], self.mesh)
-                self.sharded = True
-                self._sharded_frame = make_sharded_frame_fn(g, self.mesh)
-                desc += f" sharded over {self.mesh}"
+            with profiling.annotate("load.upload"):
+                if self.mesh is None:
+                    self.state = state_from_numpy(layout, g.capacity, self.run_device).reshape(
+                        g.grid_shape)
+                else:
+                    state = state_from_numpy(layout, g.capacity).reshape(g.grid_shape)
+                    self.state = shard_state(pad_rows_for_mesh(state, self.mesh)[0], self.mesh)
+                    self.sharded = True
+                    self._sharded_frame = make_sharded_frame_fn(g, self.mesh)
+                    desc += f" sharded over {self.mesh}"
         self._set_meta(rec)
         where = "mesh" if self.sharded else self.run_device
         print(
@@ -354,26 +379,27 @@ class Simulator:
         lays them out again (the JAX engine's live switch); otherwise the
         particles are untouched. Out-of-range enum bytes are ignored (the
         running values stay)."""
-        if self.meta_record is None:
-            return
-        new = frame.metadata.copy()
-        try:
-            requested_ds = DataStructure(int(new["data_structure"]))
-            requested_dev = Device(int(new["device"]))
-        except ValueError:
-            requested_ds, requested_dev = self.data_structure, self.requested_device
-        if self.multi_process:
-            # only the global sharded layout exists: ignore switch requests
-            requested_ds, requested_dev = self.data_structure, self.requested_device
-        _, active_device = self._target_device(requested_dev)
-        if requested_ds != self.data_structure or active_device != self.active_device:
-            parts = state_to_numpy(self._grid_state())
-            self.load_frame(Frame.from_particles(new, parts[parts["ty"] >= 0]))
-            return
-        self.requested_device = requested_dev
-        new["data_structure"] = int(self.data_structure)
-        new["device"] = int(self.active_device)
-        self._set_meta(new)
+        with profiling.annotate("sim.update_metadata"):
+            if self.meta_record is None:
+                return
+            new = frame.metadata.copy()
+            try:
+                requested_ds = DataStructure(int(new["data_structure"]))
+                requested_dev = Device(int(new["device"]))
+            except ValueError:
+                requested_ds, requested_dev = self.data_structure, self.requested_device
+            if self.multi_process:
+                # only the global sharded layout exists: ignore switch requests
+                requested_ds, requested_dev = self.data_structure, self.requested_device
+            _, active_device = self._target_device(requested_dev)
+            if requested_ds != self.data_structure or active_device != self.active_device:
+                parts = state_to_numpy(self._grid_state())
+                self.load_frame(Frame.from_particles(new, parts[parts["ty"] >= 0]))
+                return
+            self.requested_device = requested_dev
+            new["data_structure"] = int(self.data_structure)
+            new["device"] = int(self.active_device)
+            self._set_meta(new)
 
     # -- frame stepping ---------------------------------------------------------
     def frame_async(self) -> None:
@@ -390,29 +416,31 @@ class Simulator:
         every other runner ignore the field."""
         if self.state is None:
             return
-        steps = self.params.steps_per_frame
-        if self.sharded:
-            self.state = self._sharded_frame(self.state, self._pvec, steps)
-            where = "cuda" if self.mesh.device_type == "cuda" else "torch-cpu"
-            self.active_kernel = f"sharded-{where}"
-            return
-        where = "cuda" if self.run_device.type == "cuda" else "torch-cpu"
-        if self.data_structure == DataStructure.COMPACT_ARRAY:
-            self.state = run_frame_allpairs_cuda(self.state, self._pvec, steps)
-            self.active_kernel = f"allpairs-{where}"
-        else:
-            ext_io, compact = _ext_io_mode()
-            if ext_io and self._lane_chunks > 1 and self.requested_device == Device.GPU:
-                k = int(self.meta_record["gpu_threads_per_block_log2"])
-                self.state = run_frame_bucket_cuda(
-                    self.state, self._pvec, steps, self.grid.move_every,
-                    lane_chunks=self._lane_chunks, ext_io=True, compact_tiles=compact,
-                    block_rows=max(1, 1 << max(0, k - 4)))
-                self.active_kernel = f"bucket-{'compact' if compact else 'ext'}-{where}"
+        self.frame_id += 1
+        with profiling.annotate("sim.frame_async", self.frame_id):
+            steps = self.params.steps_per_frame
+            if self.sharded:
+                self.state = self._sharded_frame(self.state, self._pvec, steps)
+                where = "cuda" if self.mesh.device_type == "cuda" else "torch-cpu"
+                self.active_kernel = f"sharded-{where}"
+                return
+            where = "cuda" if self.run_device.type == "cuda" else "torch-cpu"
+            if self.data_structure == DataStructure.COMPACT_ARRAY:
+                self.state = run_frame_allpairs_cuda(self.state, self._pvec, steps)
+                self.active_kernel = f"allpairs-{where}"
             else:
-                self.state = run_frame_bucket_cuda(self.state, self._pvec, steps,
-                                                   self.grid.move_every)
-                self.active_kernel = f"bucket-{where}"
+                ext_io, compact = _ext_io_mode()
+                if ext_io and self._lane_chunks > 1 and self.requested_device == Device.GPU:
+                    k = int(self.meta_record["gpu_threads_per_block_log2"])
+                    self.state = run_frame_bucket_cuda(
+                        self.state, self._pvec, steps, self.grid.move_every,
+                        lane_chunks=self._lane_chunks, ext_io=True, compact_tiles=compact,
+                        block_rows=max(1, 1 << max(0, k - 4)))
+                    self.active_kernel = f"bucket-{'compact' if compact else 'ext'}-{where}"
+                else:
+                    self.state = run_frame_bucket_cuda(self.state, self._pvec, steps,
+                                                       self.grid.move_every)
+                    self.active_kernel = f"bucket-{where}"
 
     def sync(self) -> None:
         """Block until every frame enqueued so far has run: the barrier a
@@ -443,30 +471,33 @@ class Simulator:
 
     def start_readback(self, state: Optional[ParticleState] = None) -> ReadbackTicket:
         """Start the device -> host copy of ``state`` (default: the current
-        one): the dense pack of a bucket grid, or a whole CompactArray
-        state; ``read_frame`` consumes the ticket."""
-        state = self._grid_state() if state is None else state
-        if state is None:  # not the frame owner: rank 0 holds the grid
-            return ReadbackTicket(None, None, None, None, None)
-        if state.x.dim() == 1:
-            scalars, packed, k, ncap = None, state, None, None
-        else:
-            k = min(self._readback_k, state.x.shape[-1])
-            ncap = self._readback_ncap
-            scalars, packed = dense_readback(state, k, ncap)
-        if not state.x.is_cuda:
-            return ReadbackTicket(state, scalars, packed, k, ncap)
-        with torch.cuda.device(state.x.device):  # the pack, copies and event share its stream
-            host = []
-            for t in (*([] if scalars is None else [scalars]), *packed):
-                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                h.copy_(t, non_blocking=True)
-                host.append(h)
-            event = torch.cuda.Event()
-            event.record()
-        if scalars is not None:
-            scalars, host = host[0], host[1:]
-        return ReadbackTicket(state, scalars, ParticleState(*host), k, ncap, event)
+        one, whose frame id the ticket carries): the dense pack of a bucket
+        grid, or a whole CompactArray state; ``read_frame`` consumes the
+        ticket."""
+        frame = self.frame_id if state is None else None
+        with profiling.annotate("sim.start_readback", frame):
+            state = self._grid_state() if state is None else state
+            if state is None:  # not the frame owner: rank 0 holds the grid
+                return ReadbackTicket(None, None, None, None, None, frame=frame)
+            if state.x.dim() == 1:
+                scalars, packed, k, ncap = None, state, None, None
+            else:
+                k = min(self._readback_k, state.x.shape[-1])
+                ncap = self._readback_ncap
+                scalars, packed = dense_readback(state, k, ncap)
+            if not state.x.is_cuda:
+                return ReadbackTicket(state, scalars, packed, k, ncap, frame=frame)
+            with torch.cuda.device(state.x.device):  # the pack, copies and event share its stream
+                host = []
+                for t in (*([] if scalars is None else [scalars]), *packed):
+                    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    h.copy_(t, non_blocking=True)
+                    host.append(h)
+                event = torch.cuda.Event()
+                event.record()
+            if scalars is not None:
+                scalars, host = host[0], host[1:]
+            return ReadbackTicket(state, scalars, ParticleState(*host), k, ncap, event, frame)
 
     def read_frame(self, state=None, meta: Optional[np.ndarray] = None) -> Frame:
         """The live particles of a ticket (or of ``state``, default the
@@ -479,8 +510,16 @@ class Simulator:
         rec = self.meta_record if meta is None else meta
         if ticket.state is None:
             return Frame.from_particles(rec, np.zeros(0, PARTICLE_DTYPE), owned=True)
-        if ticket.event is not None:
-            ticket.event.synchronize()
+        with profiling.annotate("sim.read_frame", ticket.frame):
+            with profiling.annotate("readback.wait"):
+                if ticket.event is not None:
+                    ticket.event.synchronize()
+            with profiling.annotate("readback.unpack"):
+                return self._unpack(ticket, rec)
+
+    def _unpack(self, ticket: ReadbackTicket, rec: np.ndarray) -> Frame:
+        """The frame of a ticket whose copy has landed (a widened redo
+        waits for its own copy here)."""
         if ticket.scalars is None:
             parts = state_to_numpy(ticket.packed)
             # the boolean-mask gather is a fresh array: hand it over
@@ -490,6 +529,7 @@ class Simulator:
         if mx > k or total > ncap:
             # a bucket outgrew the slot prefix (or, defensively, the live
             # count outgrew the pack): widen the sticky sizes and redo
+            profiling.count("readback.redo")
             self._readback_k = min(pow2_at_least(mx), ticket.state.x.shape[-1])
             self._readback_ncap = max(ncap, pow2_at_least(total))
             self._readback_low_streak = 0

@@ -11,7 +11,8 @@ Mirrors the reference's ``particle_io::{Reader, Writer, TcpClient}``
   raised once the stream ends *and* the queue is drained.
 - ``read_last()`` drains the queue and returns only the newest frame — the
   simulator-side consumption pattern (newest-wins, reference:
-  particle_io/c_api/src/reader.rs:51-63).
+  particle_io/c_api/src/reader.rs:51-63); each frame it drops for a newer
+  one adds to the counter ``poll.superseded`` (``utils/profiling.py``).
 - ``Writer`` is a thin blocking write-all.
 - ``new_tcp_client(addr)`` connects and returns (Reader, Writer) over the same
   socket (the engine side); ``new_tcp_server(addr)`` binds a non-blocking listener
@@ -34,6 +35,7 @@ from particle_simulator_tpu_torch.io.frame import (
     SIGNATURE_START,
     packet_size,
 )
+from particle_simulator_tpu_torch.utils import profiling
 
 import numpy as np
 
@@ -149,6 +151,8 @@ class Reader:
                 raise
             if frame is None:
                 return last
+            if last is not None:
+                profiling.count("poll.superseded")
             last = frame
 
     def read_blocking(self, timeout: Optional[float] = None) -> Frame:

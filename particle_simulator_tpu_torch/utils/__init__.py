@@ -1,2 +1,2 @@
-"""Utilities: the throughput meter and profiling helpers, logging, the
+"""Utilities: the span recorder and profiling helpers, logging, the
 precision helpers and the web editor's number formats (``numfmt``)."""

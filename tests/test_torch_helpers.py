@@ -13,6 +13,7 @@ thousands of steps trajectories diverge chaotically, so the integrator claim
 compares drift statistics, not states.
 """
 
+import ast
 import json
 import os
 
@@ -289,12 +290,32 @@ def test_trace_writes_a_chrome_trace_and_annotate_nests(tmp_path):
         pass
 
 
-def test_step_meter_and_card_line(monkeypatch):
-    meter = profiling.StepMeter()
-    meter.tick(100, 1000)
-    meter.tick(100, 1000)
-    rep = meter.report()
-    assert rep["total_steps"] == 200 and rep["steps_per_sec"] > 0
+def test_step_meter_and_card_line(monkeypatch, capsys):
+    from particle_simulator_tpu_torch.engine import daemon
+
+    assert daemon.rate_report(6400, 200, 200_000, 2.0) == {
+        "steps_per_sec": 100.0, "particle_steps_per_sec": 100_000.0, "total_steps": 6400}
+    # the daemon's line every 64 frames: the steps and particle-steps of the
+    # frames shipped since its last report, over the same interval
+
+    class Quiet:
+        is_connected = True
+
+        def read(self):
+            return None
+
+        def write(self, frame):
+            pass
+
+    scene = small_scene(steps=1)
+    sim = Simulator(bucket.GridConfig(4, 4, 8), device="cpu")
+    sim.load_frame(scene)
+    assert daemon.main_loop(Quiet(), sim, max_frames=64, readback_depth=0) == 64
+    (line,) = [ln for ln in capsys.readouterr().err.splitlines() if ln.startswith("engine: {")]
+    rep = ast.literal_eval(line[len("engine: "):line.rindex(" [")])
+    assert rep["total_steps"] == 64 and rep["steps_per_sec"] > 0
+    assert rep["particle_steps_per_sec"] == pytest.approx(
+        rep["steps_per_sec"] * scene.particle_count, rel=1e-3)
 
     class Done:
         stdout = "NVIDIA H100 80GB HBM3, 700.00 W\nsecond card, 1 W\n"
@@ -377,7 +398,7 @@ def test_live_launch_width_edit_is_echoed_and_read_by_the_ext_frame(monkeypatch,
     sim = Simulator(bucket.GridConfig(8, 4, 8), device="cpu")
     scene = sparse_scene()
     sim.load_frame(scene)
-    state_id = id(sim.state)
+    loaded = sim.state
     sim.frame_async()
     assert sim.read_frame().metadata.gpu_threads_per_block_log2 == 7
     edit = Frame.new()
@@ -393,4 +414,4 @@ def test_live_launch_width_edit_is_echoed_and_read_by_the_ext_frame(monkeypatch,
         assert sim.active_kernel == "bucket-compact-torch-cpu" and seen == [8, 2]
     else:
         assert sim.active_kernel == "bucket-torch-cpu" and seen == [None, None]
-    assert state_id != id(sim.state)  # frames ran
+    assert sim.state is not loaded  # frames ran

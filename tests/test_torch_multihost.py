@@ -524,7 +524,9 @@ def test_multi_process_daemon_coerces_compact_array(tmp_path):
     meta.data_structure = DataStructure.COMPACT_ARRAY
     meta.device = Device.CPU_MAIN_THREAD
     server = new_tcp_server(("127.0.0.1", 0))
-    procs = daemons(tmp_path, f"127.0.0.1:{server.addr[1]}", "--retry-s", "60")
+    spans = tmp_path / "spans.json"
+    procs = daemons(tmp_path, f"127.0.0.1:{server.addr[1]}", "--retry-s", "60",
+                    "--spans", str(spans))
     frames = []
     try:
         conn = None
@@ -552,6 +554,11 @@ def test_multi_process_daemon_coerces_compact_array(tmp_path):
         assert ("engine: multi-process run forces MatrixBuckets/accelerator "
                 "(requested COMPACT_ARRAY/CPU_MAIN_THREAD)") in err
         assert "sharded over DeviceMesh(2x1" in err
+        # --spans: a file a process, each with that process's frames
+        with open(f"{spans}.rank{i}") as f:
+            names = [s[0] for s in json.load(f)["spans"]]
+        assert names.count("sim.load_frame") == 1 and "sim.frame_async" in names
+    assert not spans.exists()
     # the echo holds the scene's particles, in bucket order
     rows = lambda parts: sorted(parts[i].tobytes() for i in range(len(parts)))  # noqa: E731
     assert rows(frames[0].particles) == rows(scene.particles)
