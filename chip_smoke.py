@@ -395,11 +395,14 @@ def sass_pair_counts(lib_path, kernel: str, pairs_per_iter: int) -> dict:
 
 def main_loop_sass(sass: str, kernel: str) -> list[str]:
     """The opcodes (with modifiers) of the innermost loop with the most
-    ``MUFU.EX2`` in the SASS of the function whose name contains
-    ``kernel``. A loop is a backward branch and the instructions from its
-    target to it; branch targets are addresses or ``.L_x_N`` labels."""
+    ``MUFU.EX2`` in the SASS of the first function named ``kernel`` (its
+    whole identifier: ``bucket_step_kernel`` is not
+    ``bucket_step_kernel_tiles``; either template instance). A loop is a
+    backward branch and the instructions from its target to it; branch
+    targets are addresses or ``.L_x_N`` labels."""
     funcs = re.split(r"\n\s*Function : ", sass)
-    body = next((f for f in funcs[1:] if kernel in f.split("\n", 1)[0]), None)
+    body = next((f for f in funcs[1:]
+                 if kernel_name(f.split("\n", 1)[0].strip()).split("<")[0] == kernel), None)
     if body is None:
         raise AssertionError(f"no function named like {kernel} in the SASS")
     insts, labels, pending = [], {}, []
@@ -436,6 +439,20 @@ def main_loop_sass(sass: str, kernel: str) -> list[str]:
     return max(bodies, key=lambda b: b.count("MUFU.EX2"))
 
 
+def kernel_name(symbol: str) -> str:
+    """A kernel's name in a mangled symbol, a template instance named like
+    ``kernel<1>``: the last length-prefixed identifier that holds
+    ``kernel``, read by its own length, so that one name is never taken for
+    the start of a longer one; a symbol with none is its own name."""
+    found = None
+    for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*))", symbol):
+        n, rest = int(m.group(1)), m.group(2)
+        if len(rest) >= n and "kernel" in rest[:n]:
+            flag = re.match(r"ILb([01])E", rest[n:])
+            found = rest[:n] + (f"<{flag.group(1)}>" if flag else "")
+    return found or symbol
+
+
 def ptxas_summary(log: str) -> dict:
     """``nvcc -Xptxas -v`` output -> {kernel: {registers, spill_stores,
     spill_loads, smem}}, a template instance named like ``kernel<1>``."""
@@ -443,9 +460,7 @@ def ptxas_summary(log: str) -> dict:
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            found = re.findall(r"\d+([a-z_]+_kernel)(?:ILb([01])E)?", entry.group(1))
-            name = (found[-1][0] + (f"<{found[-1][1]}>" if found[-1][1] else "")
-                    if found else entry.group(1))
+            name = kernel_name(entry.group(1))
             out[name] = {}
         elif name is not None:
             spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -1000,8 +1015,9 @@ def _accept(server, timeout: float):
 
 def phase_compact_slice(device, compact_frames: int, bucket_frames: int):
     """Phase 7: the gas-diffusion scene served as CompactArray through the
-    all-pairs kernel, then switched live to MatrixBuckets. This script is
-    the editor, on the port's own TCP server."""
+    all-pairs kernel, then switched live to MatrixBuckets (the live-tile
+    step where the reloaded grid has lane chunks). This script is the
+    editor, on the port's own TCP server."""
     from particle_simulator_tpu_torch.engine import daemon
     from particle_simulator_tpu_torch.engine.simulator import Simulator
     from particle_simulator_tpu_torch.io.frame import DataStructure, Frame
@@ -1068,14 +1084,17 @@ def phase_compact_slice(device, compact_frames: int, bucket_frames: int):
     serve_s = time.perf_counter() - t0
     if thread.is_alive():
         raise AssertionError("the engine did not stop after the editor closed")
+    # the switched scene's step: the live-tile one where the reload gave it
+    # lane chunks (PS_EXT_IO is unset here)
+    step = "step_compact" if sim._lane_chunks > 1 else "step"
     launches = {k: v for k, v in {**counters[0], **counters[1]}.items()
-                if k in ("allpairs", "step", "dest", "place")}
+                if k in ("allpairs", step, "dest", "place")}
     compact = [c for ds, c in frames if ds == "COMPACT_ARRAY"]
     if any(c != n for c in compact):
         raise AssertionError(f"CompactArray frames lost particles: {compact}")
     if [ds for ds, _ in frames[len(compact):]].count("COMPACT_ARRAY"):
         raise AssertionError("a CompactArray frame came after the switch")
-    if kernels != ["allpairs-cuda", "bucket-cuda"]:
+    if kernels != ["allpairs-cuda", f"{STEP_RUNNERS[step]}-cuda"]:
         raise AssertionError(f"frames ran through {kernels}")
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel never launched on this path: {launches}")
@@ -1631,12 +1650,19 @@ def script_module(name: str):
     return importlib.import_module(name)
 
 
+# a one-device frame's step kernel (its LAUNCHES key) -> the Simulator's runner
+STEP_RUNNERS = {"step": "bucket", "step_compact": "bucket-compact"}
+
+
 class KernelHold:
     """Holds every kernel the scripts' path runs against its plain version,
     bit for bit, on the states that path itself hands over (the drivers'
     ``inspect`` hook): a flat state holds the all-pairs step, a (BY, BX, CAP)
-    grid the classic step, the dest and the place. The comparison's own
-    launches are taken out of the counts again. ``held`` lists what was
+    grid the classic step, the dest and the place, and, with ``PS_EXT_IO``
+    unset, the live-tile step where a ``Simulator`` would run it on a scene
+    loaded as that grid (more than one lane chunk); the line names the
+    step's ``LAUNCHES`` key as ``step_unset``. The comparison's own launches
+    are taken out of the counts again. ``held`` lists what was
     compared; ``err`` is the largest live-velocity difference per kernel
     (0.0, or the comparison raised)."""
 
@@ -1673,9 +1699,36 @@ class KernelHold:
             own = torch.arange(dest_ref.numel(), dtype=dest_ref.dtype,
                                device=dest_ref.device).reshape(dest_ref.shape)
             line["moved_by_dest"] = int(((dest_ref >= 0) & (dest_ref != own)).sum())
+            if "PS_EXT_IO" not in os.environ:
+                chunks = self.hold_ext(label, state, pv, "compact")
+                line["step_unset"] = "step_compact" if chunks > 1 else "step"
         for counter, was in zip(counters, before):
             counter.update(was)
         self.held.append(line)
+
+    def hold_ext(self, label: str, state, pv, ext: str) -> int:
+        """The ``ext`` (``compact`` or ``nocompact``) ext-layout step against
+        its plain version on the lane chunks the Simulator's load rule picks
+        for the grid ``state`` (``_lane_chunks_for``) and 8-row tiles (the
+        default launch width's); returns the chunk count (1: nothing held,
+        since the ext frame then does not run)."""
+        from particle_simulator_tpu_torch.engine.simulator import _lane_chunks_for
+        from particle_simulator_tpu_torch.ops import bucket_cuda as bc
+        from particle_simulator_tpu_torch.physics import bucket
+
+        grid = bucket.GridConfig(*bucket.grid_log2(state), state.x.shape[-1])
+        chunks = _lane_chunks_for((state.ty >= 0).sum(-1).cpu().numpy(), grid)
+        if chunks == 1:
+            return 1
+        name, compact = BENCH_EXT[ext], ext == "compact"
+        launches = dict(bc.LAUNCHES)
+        aux = bucket.ext_step_aux(state, pv, chunks, 8)
+        err = same_state(bc.bucket_step_ext_cuda(bc.ext_pair(state), aux, compact).cur,
+                         bucket.bucket_step_ext(state, aux, compact),
+                         f"{label}: the {ext} ext step against its plain version")
+        bc.LAUNCHES.update(launches)
+        self.err[name] = max(self.err.get(name, 0.0), err)
+        return chunks
 
 
 def phase_configs(device: str, frames: int, steps: int, hold: KernelHold):
@@ -1683,13 +1736,18 @@ def phase_configs(device: str, frames: int, steps: int, hold: KernelHold):
     ``bench_config``: the Simulator's own dispatch, ``frames`` timed frames
     of ``steps`` steps after one warm-up frame, ``Simulator.sync()`` as the
     barrier; the kernels held on each config's state as loaded and after
-    its frames."""
+    its frames. Config 3's step is the one the unset ``PS_EXT_IO`` gives its
+    scene as loaded (the hold's ``step_unset``)."""
     bench = script_module("torch_bench_configs")
     want = {1: ("allpairs", "allpairs"), 2: ("allpairs", "allpairs"), 3: ("bucket", "step")}
     records, total = {}, {}
     for num, (runner, kernel) in want.items():
+        first = len(hold.held)
         with counted_launches() as launches:
             rec = bench.bench_config(num, frames, steps, torch_device=device, inspect=hold)
+        if num == 3:
+            kernel = hold.held[first].get("step_unset", "step")
+            runner = STEP_RUNNERS[kernel]
         if rec["kernel"] != f"{runner}-cuda" or rec["device"] != "cuda":
             raise AssertionError(f"config {num} ran through {rec['kernel']} on {rec['device']}")
         if launches[kernel] != (frames + 1) * steps:  # the warm-up frame too
@@ -1712,8 +1770,11 @@ def phase_sweep(device: str, hold: KernelHold):
     ``scripts/torch_phase_sweep_chip.py`` at full size (512 x 512) with the
     script's own step budgets (they fit: ~33 s on the H100); all six
     order-parameter checks must hold, and the kernels are held on each
-    phase's state as loaded and after its last frame."""
+    phase's state as loaded and after its last frame. Each phase runs the
+    step that the unset ``PS_EXT_IO`` gives its scene as loaded (the hold's
+    ``step_unset``)."""
     sweep = script_module("torch_phase_sweep_chip")
+    first = len(hold.held)
     t0 = time.perf_counter()
     with counted_launches() as launches:
         records, verdict = sweep.phase_sweep(
@@ -1727,11 +1788,16 @@ def phase_sweep(device: str, hold: KernelHold):
     print("sweep: " + json.dumps(line), flush=True)
     if not verdict["ok"]:
         raise AssertionError(f"the phase sweep failed its checks: {verdict['checks']}")
+    loaded = {h["at"]: h.get("step_unset", "step") for h in hold.held[first:]}
+    want = dict.fromkeys(STEP_RUNNERS, 0)
     for rec in records:
-        if rec["kernel"] != "bucket-cuda":
+        kernel = loaded[f"{rec['phase']} as loaded"]
+        want[kernel] += rec["steps"]
+        if rec["kernel"] != f"{STEP_RUNNERS[kernel]}-cuda":
             raise AssertionError(f"phase {rec['phase']} ran through {rec['kernel']}")
-    if launches["step"] != steps or launches["dest"] == 0 or launches["place"] == 0:
-        raise AssertionError(f"the sweep's {steps} steps launched {launches}")
+    if any(launches[k] != n for k, n in want.items()) or launches["dest"] == 0 \
+            or launches["place"] == 0:
+        raise AssertionError(f"the sweep's {steps} steps launched {launches}, expected {want}")
     return line, launches
 
 
@@ -2507,10 +2573,11 @@ class FrameCheck:
 def hold_grid(label: str, sim) -> dict:
     """``KernelHold`` on a daemon's own one-device bucket grid (its
     ``--inspect`` hook; phase 21): the step, the dest and the place against
-    their plain versions, bit for bit, on the served state. The line also
+    their plain versions, bit for bit, on the served state, and the
+    live-tile step where the unset ``PS_EXT_IO`` runs it. The line also
     carries the daemon's launches so far (the hold's own are taken out
-    again), whether every live velocity is finite and each kernel's largest
-    live-velocity difference."""
+    again), whether every live velocity is finite and the largest
+    live-velocity difference of each kernel of the state's path."""
     import torch
 
     from particle_simulator_tpu_torch.ops import allpairs_cuda, bucket_cuda as bc
@@ -2523,8 +2590,9 @@ def hold_grid(label: str, sim) -> dict:
     alive = sim.state.ty >= 0
     finite = bool(torch.isfinite(sim.state.vx[alive]).all()
                   and torch.isfinite(sim.state.vy[alive]).all())
+    path = (hold.held[0].get("step_unset", "step"), *CONFIG5_PATH[1:])
     return {**hold.held[0], "launches": launches, "finite": finite,
-            "max_abs_err": {k: hold.err[k] for k in CONFIG5_PATH}}
+            "max_abs_err": {k: hold.err.get(k, 0.0) for k in path}}
 
 
 def config5_checks(rec: dict, check: FrameCheck, held: list, shipped: int,
@@ -2532,8 +2600,8 @@ def config5_checks(rec: dict, check: FrameCheck, held: list, shipped: int,
     """Phase 21's checks on the script's result line, the FIFO's counts, the two
     ``hold_grid`` lines and the frames the daemon says it shipped, for a
     lattice of ``drawn`` particles served through the kernels of ``path``
-    (none on the CPU); returns the daemon's launches and each kernel's
-    largest error."""
+    (none on the CPU); returns the daemon's launches and each held
+    kernel's largest error."""
     if rec["particles"] < 0.9 * drawn:
         raise AssertionError(f"config 5: {rec['particles']} particles, fewer than 0.9 x "
                              f"{drawn}")
@@ -2561,7 +2629,10 @@ def config5_checks(rec: dict, check: FrameCheck, held: list, shipped: int,
         raise AssertionError(f"config 5: a kernel of the path never launched: {launches}")
     if any(v for k, v in launches.items() if k not in path):
         raise AssertionError(f"config 5: a kernel of another path launched: {launches}")
-    err = {k: max(h["max_abs_err"][k] for h in held) for k in CONFIG5_PATH}
+    err = {}
+    for h in held:
+        for k, v in h["max_abs_err"].items():
+            err[k] = max(err.get(k, 0.0), v)
     return {"launches": launches, "err": err}
 
 
@@ -2570,7 +2641,8 @@ def phase_config5(workdir: str, seconds: float = CONFIG5_SECONDS, n_side: int = 
     """Phase 21: ``scripts/torch_interactive_1m_chip.py``'s ``record`` for
     ``seconds`` (on the card unless ``torch_device`` says otherwise, as the
     CPU tests do at a small ``n_side``), the daemon holding rows 1-3 on its
-    grid through ``--inspect chip_smoke:hold_grid`` and teeing its frames
+    grid (or row 5 where the unset ``PS_EXT_IO`` runs it) through
+    ``--inspect chip_smoke:hold_grid`` and teeing its frames
     into a FIFO read by ``FrameCheck``; both children's module reports
     checked."""
     drv = script_module("torch_interactive_1m_chip")
@@ -2601,8 +2673,10 @@ def phase_config5(workdir: str, seconds: float = CONFIG5_SECONDS, n_side: int = 
     found = re.findall(r"^engine: disconnected after (\d+) frames", daemon_log, re.M)
     shipped = int(found[-1]) if found else 0
     held = inspect_lines([(0, "", daemon_log)], "config 5")
+    # the daemon's PS_EXT_IO is unset: its step follows the scene as loaded
+    step = held[0].get("step_unset", "step") if held else "step"
     verdict = config5_checks(rec, check, held, shipped, n_side * n_side,
-                             CONFIG5_PATH if torch_device == "cuda" else ())
+                             (step, *CONFIG5_PATH[1:]) if torch_device == "cuda" else ())
     print("config 5 held: " + json.dumps(
         {"shipped": shipped, "fifo_frames": check.frames, "particles_min_max": check.particles,
          "nonfinite_frames": check.nonfinite, "states": held, "launches": verdict["launches"],
@@ -2657,10 +2731,6 @@ class BenchHold(KernelHold):
         self.err.update(dict.fromkeys((*BENCH_EXT.values(), *HALO_KERNELS), 0.0))
 
     def __call__(self, label: str, state, pv) -> None:
-        from particle_simulator_tpu_torch.engine.simulator import _lane_chunks_for
-        from particle_simulator_tpu_torch.ops import bucket_cuda as bc
-        from particle_simulator_tpu_torch.physics import bucket
-
         if not hasattr(state, "_fields"):  # the mesh's blocks
             line = hold_halo(label, state, self.mesh, self.cfg, pv)
             for k, v in line["max_abs_err"].items():
@@ -2668,21 +2738,8 @@ class BenchHold(KernelHold):
             self.held.append(line)
             return
         super().__call__(label, state, pv)
-        if self.ext is None:
-            return
-        grid = bucket.GridConfig(*bucket.grid_log2(state), state.x.shape[-1])
-        chunks = _lane_chunks_for((state.ty >= 0).sum(-1).cpu().numpy(), grid)
-        self.held[-1]["lane_chunks"] = chunks
-        if chunks == 1:
-            return
-        name, compact = BENCH_EXT[self.ext], self.ext == "compact"
-        launches = dict(bc.LAUNCHES)
-        aux = bucket.ext_step_aux(state, pv, chunks, 8)
-        err = same_state(bc.bucket_step_ext_cuda(bc.ext_pair(state), aux, compact).cur,
-                         bucket.bucket_step_ext(state, aux, compact),
-                         f"{label}: the {self.ext} ext step against its plain version")
-        bc.LAUNCHES.update(launches)
-        self.err[name] = max(self.err[name], err)
+        if self.ext is not None:
+            self.held[-1]["lane_chunks"] = self.hold_ext(label, state, pv, self.ext)
 
 
 def bench_particles(args) -> int:
@@ -3141,8 +3198,8 @@ def main() -> int:
     sass = FORCE_LAW_COUNTS
     loops = {"allpairs_step_kernel": sass_pair_counts(
                  lib_path, "allpairs_step_kernel", lib.ps_allpairs_pairs_per_iter()),
-             "bucket_step_tiles_kernel": sass_pair_counts(
-                 lib_path, "bucket_step_tiles_kernel", lib.ps_bucket_tiles_pairs_per_iter()),
+             "bucket_step_kernel_tiles": sass_pair_counts(
+                 lib_path, "bucket_step_kernel_tiles", lib.ps_bucket_tiles_pairs_per_iter()),
              # the classic and halo step run the same staged candidate loop
              "bucket_step_kernel": sass_pair_counts(
                  lib_path, "bucket_step_kernel", lib.ps_bucket_tiles_pairs_per_iter())}
@@ -3229,9 +3286,10 @@ def main() -> int:
     ap_err = max(line["max_abs_err_v"] for line in ap.values())
     kernels = [
         kernel_entry("bucket_step", "bucket_step.cu", STEP_KERNEL, sl["launches"]["step"],
-                     max(err, hold.err["step"], c5err["step"], berr["step"], serr["step"]),
+                     max(err, hold.err["step"], c5err.get("step", 0.0), berr["step"],
+                         serr["step"]),
                      ms["step"], ms["step_plain"], bnd["step"], None, scripted["step"],
-                     launches_config5=c5l["step"], launches_bench=bl["step"],
+                     launches_config5=c5l.get("step", 0), launches_bench=bl["step"],
                      launches_scale=scl["step"]),
         kernel_entry("bucket_dest", "bucket_dest.cu", DEST_KERNEL, sl["launches"]["dest"],
                      max(hold.err["dest"], c5err["dest"], berr["dest"], serr["dest"]),
@@ -3281,9 +3339,12 @@ def main() -> int:
                      ebnd, None, launches_bench=bl["step_ext"], launches_scale=scl["step_ext"]),
         kernel_entry("bucket_step_compact", "bucket_step.cu", COMPACT_KERNEL,
                      esl["compact"]["launches"]["step_compact"],
-                     max(eerr, berr["step_compact"], serr["step_compact"]), ems["compact"],
-                     ems["compact_plain"], ebnd, None, launches_bench=bl["step_compact"],
-                     launches_scale=scl["step_compact"]),
+                     max(eerr, hold.err.get("step_compact", 0.0),
+                         c5err.get("step_compact", 0.0), berr["step_compact"],
+                         serr["step_compact"]), ems["compact"], ems["compact_plain"], ebnd,
+                     None, scripted.get("step_compact", 0),
+                     launches_config5=c5l.get("step_compact", 0),
+                     launches_bench=bl["step_compact"], launches_scale=scl["step_compact"]),
     ]
     print("library calls: bucket_step(_halo, _ext, _compact), bucket_dest(_halo), "
           "allpairs_step none (no single PyTorch call computes the Mie step, the pull-order "

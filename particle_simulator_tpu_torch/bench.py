@@ -340,9 +340,11 @@ def parser() -> argparse.ArgumentParser:
                          "count (0 = auto)")
     ap.add_argument("--ext-io", choices=("auto", "off", "compact", "nocompact"),
                     default="auto",
-                    help="[--user-scene only] sets PS_EXT_IO for the run: off (and auto, "
-                         "unless PS_EXT_IO says otherwise) = the classic step, compact = "
-                         "the ext-layout step on the live tiles, nocompact = on every tile")
+                    help="[--user-scene only] sets PS_EXT_IO for the run: off = the "
+                         "classic step, compact = the ext-layout step on the live tiles, "
+                         "nocompact = on every tile; auto leaves PS_EXT_IO as it is, and "
+                         "unset the Simulator steps the live tiles of a scene with more than "
+                         "one lane chunk (the 1M user scene has 8), else the classic step")
     ap.add_argument("--per-frame", action="store_true",
                     help="barrier every frame (torch.cuda.synchronize) and report the "
                          "per-frame time distribution")

@@ -35,8 +35,10 @@ is full); on ``ship-rb`` ``sim.read_frame`` with ``readback.wait`` and
 ``readback.unpack``; on ``ship-tx`` ``daemon.send`` (wire pack and TCP
 send). ``sim.load_frame`` (``load.grid_pick``, ``load.bucketize``,
 ``load.upload``) and ``sim.update_metadata`` mark scene loads and live
-edits; the counters ``poll.superseded`` and ``readback.redo`` count the
-editor frames a poll dropped for a newer one and the widened readbacks.
+edits; the counters ``poll.superseded``, ``readback.redo`` and
+``frame.ext_default`` count the editor frames a poll dropped for a newer
+one, the widened readbacks and the frames an unset ``PS_EXT_IO`` sent to
+the live-tile step.
 
 Run:  python -m particle_simulator_tpu_torch.engine.daemon [--addr HOST:PORT]
 """

@@ -16,8 +16,13 @@ Counterpart of ``particle_simulator_tpu/engine/simulator.py``:
   overlap the daemon relies on); CPU tensors run the plain versions. A
   MatrixBuckets scene whose occupancy leaves lane chunks to skip
   (``_lane_chunks_for``, chosen at load) runs the ext-layout frame when
-  ``PS_EXT_IO`` asks for it (``_ext_io_mode``; the default ``off`` keeps
-  the classic step, as in the JAX engine);
+  ``PS_EXT_IO`` asks for it (``_ext_io_mode``), and, unlike the JAX
+  engine, whose default is ``off``, when it is unset: it then steps the
+  live tiles only, since on the H100 that frame takes less time than the
+  classic one at every live-tile share that leaves lane chunks (at most
+  75%). The counter ``frame.ext_default`` counts the frames the unset
+  default sent there. A scene that fills its box after load keeps its
+  load-time choice, as it keeps its lane chunks;
 - ``start_readback`` packs the live particles of a bucket grid on the
   device (``ops/readback.py``), or takes a CompactArray state whole, and
   starts the copy into pinned host buffers; ``read_frame`` waits on the
@@ -32,7 +37,8 @@ is recorded unless recording is on) share it: ``sim.load_frame`` (with
 ``sim.update_metadata``, ``sim.frame_async``, ``sim.start_readback`` and
 ``sim.read_frame`` (with ``readback.wait``, the wait for the copy, and
 ``readback.unpack``, the host work after it). The counter ``readback.redo``
-counts the readbacks widened and done again.
+counts the readbacks widened and done again, ``frame.ext_default`` the
+frames an unset ``PS_EXT_IO`` sent to the live-tile step.
 
 Devices: a ``GPU`` request runs the CUDA kernels on a CUDA ``Simulator``;
 ``CPU_THREAD_POOL`` and ``CPU_MAIN_THREAD`` move the scene to CPU tensors,
@@ -178,13 +184,17 @@ def _grid_for(
     return cfg
 
 
-def _ext_io_mode() -> tuple[bool, bool]:
+def _ext_io_mode() -> tuple[bool, bool] | None:
     """(ext_io, compact_tiles) of the MatrixBuckets frame on the card, from
     ``PS_EXT_IO``, read at every frame as the JAX engine reads it:
     ``compact``, ``auto``, ``on`` or ``1`` run the ext-layout step on the
-    live tiles only, ``nocompact`` on every tile; anything else, and the
-    default ``off``, the classic step."""
-    mode = os.environ.get("PS_EXT_IO", "off").lower()
+    live tiles only, ``nocompact`` on every tile; ``off`` and anything else
+    the classic step. None when it is unset, where the JAX engine runs the
+    classic step and the port the ext-layout step on the live tiles."""
+    mode = os.environ.get("PS_EXT_IO")
+    if mode is None:
+        return None
+    mode = mode.lower()
     if mode in ("compact", "auto", "on", "1"):
         return True, True
     if mode == "nocompact":
@@ -406,14 +416,15 @@ class Simulator:
         """Enqueue one frame (steps_per_frame steps) and return. The
         wrappers launch the CUDA kernels for a state on the card and run the
         plain versions for a state on the CPU. An unsharded MatrixBuckets
-        scene asked for on the GPU runs the ext-layout frame when
-        ``PS_EXT_IO`` asks for it and the scene has more than one lane
-        chunk; its tiles are ``2^(gpu_threads_per_block_log2 - 4)`` bucket
-        rows where they fit (the JAX engine's launch-width mapping). A live
-        edit of ``gpu_threads_per_block_log2`` is echoed in the metadata at
-        once and read here, so it takes effect on the next ext frame without
-        a reload (the JAX engine's served behaviour); the classic frame and
-        every other runner ignore the field."""
+        scene asked for on the GPU that has more than one lane chunk runs
+        the ext-layout frame when ``PS_EXT_IO`` asks for it, and on the live
+        tiles when it is unset (counted as ``frame.ext_default``); its tiles
+        are ``2^(gpu_threads_per_block_log2 - 4)`` bucket rows where they
+        fit (the JAX engine's launch-width mapping). A live edit of
+        ``gpu_threads_per_block_log2`` is echoed in the metadata at once and
+        read here, so it takes effect on the next ext frame without a reload
+        (the JAX engine's served behaviour); the classic frame and every
+        other runner ignore the field."""
         if self.state is None:
             return
         self.frame_id += 1
@@ -429,8 +440,11 @@ class Simulator:
                 self.state = run_frame_allpairs_cuda(self.state, self._pvec, steps)
                 self.active_kernel = f"allpairs-{where}"
             else:
-                ext_io, compact = _ext_io_mode()
+                mode = _ext_io_mode()
+                ext_io, compact = mode or (True, True)
                 if ext_io and self._lane_chunks > 1 and self.requested_device == Device.GPU:
+                    if mode is None:
+                        profiling.count("frame.ext_default")
                     k = int(self.meta_record["gpu_threads_per_block_log2"])
                     self.state = run_frame_bucket_cuda(
                         self.state, self._pvec, steps, self.grid.move_every,

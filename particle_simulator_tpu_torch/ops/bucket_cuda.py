@@ -170,13 +170,15 @@ class ExtPair(NamedTuple):
     spare: ParticleState
 
 
-def ext_pair(state: ParticleState) -> ExtPair:
-    """A fresh pair for ``state``: two copies of its x, y, vx, vy, never
-    its own buffers (a readback may hold them), sharing its ty."""
+def ext_pair(state: ParticleState, own: bool = False) -> ExtPair:
+    """A fresh pair for ``state``, sharing its ty: two copies of its x, y,
+    vx, vy, never its own buffers (a readback may hold them); with ``own``
+    (a state nothing else holds, such as a rebucket's output inside a
+    frame) the state itself and one copy."""
     def copy():
         return ParticleState(*(a.clone() for a in state[:4]), state.ty)
 
-    return ExtPair(copy(), copy())
+    return ExtPair(state if own else copy(), copy())
 
 
 @functools.lru_cache(maxsize=None)
@@ -193,8 +195,16 @@ def bucket_step_ext_cuda(pair, aux: bucket.ExtStepAux, compact: bool):
     stepped through a fresh pair and the stepped state returned."""
     if isinstance(pair, ParticleState):
         return bucket_step_ext_cuda(ext_pair(pair), aux, compact).cur
+    _check_ext(pair, aux)
+    return _launch_ext(pair, aux, compact)
+
+
+def _check_ext(pair: ExtPair, aux: bucket.ExtStepAux) -> None:
+    """Validate an ext step's pair and aux. The steps of one move chunk
+    swap the same two buffers under the same aux, so the frame checks them
+    once, at the chunk's entry."""
     cur, spare = pair
-    on_cuda = _on_cuda(cur)
+    _on_cuda(cur)
     check_fields(spare)
     if spare.x.shape != cur.x.shape or spare.x.device != cur.x.device:
         raise ValueError(f"spare buffers {tuple(spare.x.shape)} on {spare.x.device} differ "
@@ -211,8 +221,15 @@ def bucket_step_ext_cuda(pair, aux: bucket.ExtStepAux, compact: bool):
     for name in ("flags", "order"):
         check_aux(getattr(aux, name), name, torch.int32, (n_tiles,), device)
     check_aux(aux.sizes, "sizes", torch.int32, (1,), device)
-    if not on_cuda:
+
+
+def _launch_ext(pair: ExtPair, aux: bucket.ExtStepAux, compact: bool) -> ExtPair:
+    """The ext step of a checked pair (``_check_ext``)."""
+    cur, spare = pair
+    if not cur.x.is_cuda:
         return ExtPair(bucket.bucket_step_ext(cur, aux, compact), cur)
+    by, bx, cap = cur.x.shape
+    device = cur.x.device
     with torch.cuda.device(device):
         budget = TILE_BLOCKS_PER_SM * _sm_count(torch.cuda.current_device())
         launch("ps_bucket_step_tiles", *(a.data_ptr() for a in cur),
@@ -233,17 +250,22 @@ def run_frame_bucket_cuda(state: ParticleState, params: torch.Tensor, steps: int
     With ``ext_io`` and ``lane_chunks`` > 1, the ext-layout frame
     (``run_frame_bucket_pallas``'s ext branch): each run of steps enters by
     computing the tile aux (``lane_chunks`` chunks, tiles of ``block_rows``
-    rows where they fit) and a fresh buffer pair, steps with the
-    tile-scheduled kernel (live tiles only with ``compact_tiles``), and
-    exits with the current buffer. The rebucket is the classic one.
-    Otherwise every step is the classic step."""
+    rows where they fit) and a buffer pair, checked once for the run, steps
+    with the tile-scheduled kernel (live tiles only with ``compact_tiles``),
+    and exits with the current buffer. The first run's pair is two copies
+    of ``state``, which a readback may hold; a later run's is the
+    rebucket's output, which only this frame holds, and one copy. The
+    rebucket is the classic one. Otherwise every step is the classic step."""
     if ext_io and lane_chunks > 1:
         def enter(s):
-            return ext_pair(s), bucket.ext_step_aux(s, params, lane_chunks, block_rows)
+            pair = ext_pair(s, own=s is not state)
+            aux = bucket.ext_step_aux(s, params, lane_chunks, block_rows)
+            _check_ext(pair, aux)
+            return pair, aux
 
         def step(carry):
             pair, aux = carry
-            return bucket_step_ext_cuda(pair, aux, compact_tiles), aux
+            return _launch_ext(pair, aux, compact_tiles), aux
 
         return bucket.chunked_frame_schedule(
             state, steps, move_every, step, bucket_move_cuda,

@@ -201,10 +201,14 @@ __global__ void __launch_bounds__(TILE_THREADS) bucket_step_kernel(
 // buffers that hold the same bytes on every slot no step of the chunk
 // writes (the counterpart of the Pallas call's input/output aliasing, at
 // slot grain). Otherwise every tile is visited and every slot written.
+//
+// Named bucket_step_kernel_tiles so that a device trace's step launches
+// (every kernel whose name holds bucket_step_kernel) take in both step
+// designs; lookups of one of them by name compare whole identifiers.
 constexpr int P_OMAX = P_COUNT;  // the aux appends omax to the params vector
 
 template <bool COMPACT>
-__global__ void __launch_bounds__(TILE_THREADS) bucket_step_tiles_kernel(
+__global__ void __launch_bounds__(TILE_THREADS) bucket_step_kernel_tiles(
     const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
     const float* __restrict__ vx, const float* __restrict__ vy,
     const int32_t* __restrict__ ty, const float* __restrict__ params,
@@ -342,7 +346,7 @@ extern "C" int ps_bucket_step_tiles(
   const int walkers = (int)((block_budget + tile_x - 1) / tile_x);
   const dim3 blocks(tile_x, walkers < 1 ? 1 : (walkers > n_tiles ? n_tiles : walkers));
   const int vec = copies_vectorize(cap, {x, y, vx, vy, ty, ox, oy, ovx, ovy});
-  auto kernel = compact ? bucket_step_tiles_kernel<true> : bucket_step_tiles_kernel<false>;
+  auto kernel = compact ? bucket_step_kernel_tiles<true> : bucket_step_kernel_tiles<false>;
   const cudaError_t err = allow_shared_memory(kernel, st.smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<blocks, TILE_THREADS, st.smem, (cudaStream_t)stream>>>(

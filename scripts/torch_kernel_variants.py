@@ -69,7 +69,7 @@ def tiles_shape(threads=256, rows=8, cols=16, unroll=2, extra=()):
 
 
 TILE_ORDER = "const int tile = COMPACT ? __ldg(order + k) : k;"
-TILE_BOUND = "__launch_bounds__(TILE_THREADS) bucket_step_tiles_kernel"
+TILE_BOUND = "__launch_bounds__(TILE_THREADS) bucket_step_kernel_tiles("
 # the pass-through's 16-byte copies with streaming (evict-first) loads and stores
 COPIES = [(f"*reinterpret_cast<{t}*>({o} + i) = *reinterpret_cast<const {t}*>({i} + i);",
            f"__stcs(reinterpret_cast<{t}*>({o} + i), "
@@ -156,7 +156,7 @@ VARIANTS["dest"] = {
 }
 SOURCE = {"allpairs": "allpairs_step.cu", "tiles": "bucket_step.cu", "step": "bucket_step.cu",
           "dest": "bucket_dest.cu"}
-KERNEL = {"allpairs": "allpairs_step_kernel", "tiles": "bucket_step_tiles_kernel<1>",
+KERNEL = {"allpairs": "allpairs_step_kernel", "tiles": "bucket_step_kernel_tiles<1>",
           "step": "bucket_step_kernel<0>", "dest": "bucket_dest_kernel<0>"}
 
 

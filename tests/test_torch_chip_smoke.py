@@ -51,6 +51,27 @@ def test_main_loop_sass_picks_the_inner_loop_with_most_ex2():
     assert loop == ["FFMA", "FMUL", "MUFU.EX2", "MUFU.EX2", "I2FP.F32.S32", "FADD", "BRA"]
 
 
+def test_kernel_lookups_tell_the_two_step_kernels_apart():
+    """``bucket_step_kernel`` is the start of ``bucket_step_kernel_tiles``:
+    the SASS lookup and the mangled-name reader take a kernel by its whole
+    identifier, whichever function comes first."""
+    ns = "_ZN47_GLOBAL__N__9040dbc3_14_bucket_step_cu_13312ab3"
+    tiles, classic = ns + "24bucket_step_kernel_tilesILb1EEEvPKj", ns + "18bucket_step_kernelILb0EEEvPKj"
+
+    def function(name, op):
+        return (f"\t\tFunction : {name}\n"
+                f"        /*0000*/                   {op} R1, R2, R3 ;\n"
+                "        /*0010*/                   MUFU.EX2 R4, R1 ;\n"
+                "        /*0020*/                   BRA 0x0 ;\n")
+
+    sass = "\n" + function(tiles, "FADD") + function(classic, "FMUL")
+    assert chip_smoke.main_loop_sass(sass, "bucket_step_kernel") == ["FMUL", "MUFU.EX2", "BRA"]
+    assert chip_smoke.main_loop_sass(sass, "bucket_step_kernel_tiles")[0] == "FADD"
+    assert chip_smoke.kernel_name(tiles) == "bucket_step_kernel_tiles<1>"
+    assert chip_smoke.kernel_name(classic) == "bucket_step_kernel<0>"
+    assert chip_smoke.kernel_name("tombstone_fill_kernel") == "tombstone_fill_kernel"
+
+
 def test_bounds_from_pair_counts():
     counts = {"fp32_per_pair": 50.0, "mufu_per_pair": 2.0}
     pairs = 16384 * 16383
@@ -191,8 +212,8 @@ def test_frozen_force_law_counts_reproduce_the_recorded_bounds():
 
 def test_ptxas_summary_names_each_kernel():
     log = """$ nvcc -c bucket_step.cu
-ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__9040dbc3_14_bucket_step_cu_13312ab324bucket_step_tiles_kernelILb1EEEvPKjS2_PKfS4_PKiS4_S6_S6_S6_PjS7_PfS8_iiiiiiii' for 'sm_90a'
-ptxas info    : Function properties for _ZN47_GLOBAL__N__9040dbc3_14_bucket_step_cu_13312ab324bucket_step_tiles_kernelILb1EEEvPKjS2_PKfS4_PKiS4_S6_S6_S6_PjS7_PfS8_iiiiiiii
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__9040dbc3_14_bucket_step_cu_13312ab324bucket_step_kernel_tilesILb1EEEvPKjS2_PKfS4_PKiS4_S6_S6_S6_PjS7_PfS8_iiiiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN47_GLOBAL__N__9040dbc3_14_bucket_step_cu_13312ab324bucket_step_kernel_tilesILb1EEEvPKjS2_PKfS4_PKiS4_S6_S6_S6_PjS7_PfS8_iiiiiiii
     0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
 ptxas info    : Used 64 registers, used 1 barriers, 80 bytes smem
 ptxas info    : Compiling entry function '_ZN49_GLOBAL__N__2a10dead_16_allpairs_step_cu_ad9a7de720allpairs_step_kernelEPKjS1_PKfS3_PKiS3_PjS6_PfS7_i' for 'sm_90a'
@@ -200,7 +221,7 @@ ptxas info    : Compiling entry function '_ZN49_GLOBAL__N__2a10dead_16_allpairs_
 ptxas info    : Used 63 registers, used 1 barriers, 27464 bytes smem
 """
     assert chip_smoke.ptxas_summary(log) == {
-        "bucket_step_tiles_kernel<1>": {"spill_stores": 8, "spill_loads": 4, "registers": 64,
+        "bucket_step_kernel_tiles<1>": {"spill_stores": 8, "spill_loads": 4, "registers": 64,
                                         "smem": 80},
         "allpairs_step_kernel": {"spill_stores": 0, "spill_loads": 0, "registers": 63,
                                  "smem": 27464},
@@ -746,6 +767,20 @@ def test_config5_checks_accept_and_refuse(fault, match):
             chip_smoke.config5_checks(rec, check, held, 11, 1024)
 
 
+def test_config5_checks_follow_the_served_step():
+    """A daemon that served config 5 through the live-tile step passes the
+    checks of that path, and fails those of the classic one."""
+    rec, check, held = _config5_inputs()
+    launches = {"step": 0, "step_compact": 300, "dest": 21, "place": 21}
+    held[1]["launches"] = launches
+    held[1]["max_abs_err"] = {"step_compact": 0.0, "dest": 0.0, "place": 0.0}
+    got = chip_smoke.config5_checks(rec, check, held, 11, 1024, ("step_compact", "dest", "place"))
+    assert got["launches"]["step_compact"] == 300
+    assert got["err"] == {"step": 0.0, "step_compact": 0.0, "dest": 0.0, "place": 0.0}
+    with pytest.raises(AssertionError, match="never launched"):
+        chip_smoke.config5_checks(rec, check, held, 11, 1024)
+
+
 def test_phase_config5_runs_on_the_cpu(tmp_path, monkeypatch, capsys):
     """Phase 21 end to end at 32x32 with the daemon on the CPU: the script's
     record, the FIFO, the daemon's two holds through --inspect, both module
@@ -851,6 +886,34 @@ def _sparse_grid():
     return state, SimParams.from_record(meta).vector()
 
 
+def test_kernel_hold_holds_the_live_tile_step_where_the_unset_default_runs_it(monkeypatch):
+    """With ``PS_EXT_IO`` unset, a grid that the default sends to the
+    live-tile step (two lane chunks) holds that step too and names it on its
+    line; a grid of one lane chunk holds the classic step alone, and with
+    ``PS_EXT_IO`` set no line names the default."""
+    from particle_simulator_tpu_torch.ops import bucket_cuda
+
+    monkeypatch.delenv("PS_EXT_IO", raising=False)
+    state, pv = _sparse_grid()
+    one, one_pv = _soak_grid()
+    calls = []
+    real = bucket_cuda.bucket_step_ext_cuda
+
+    def counting(pair, aux, compact):
+        calls.append(compact)
+        return real(pair, aux, compact)
+
+    monkeypatch.setattr(bucket_cuda, "bucket_step_ext_cuda", counting)
+    hold = chip_smoke.KernelHold()
+    hold("sparse", state, pv)
+    hold("one chunk", one, one_pv)
+    assert [h["step_unset"] for h in hold.held] == ["step_compact", "step"]
+    assert calls == [True] and hold.err["step_compact"] == 0.0
+    monkeypatch.setenv("PS_EXT_IO", "off")
+    hold("set", state, pv)
+    assert "step_unset" not in hold.held[-1] and calls == [True]
+
+
 @pytest.mark.parametrize("ext", ["compact", "nocompact"])
 def test_bench_hold_holds_the_ext_step_and_keeps_the_counts(monkeypatch, ext):
     from particle_simulator_tpu_torch.ops import bucket_cuda
@@ -891,6 +954,9 @@ def test_bench_hold_raises_on_an_ext_difference(monkeypatch):
         return out._replace(cur=out.cur._replace(x=x))
 
     monkeypatch.setattr(bucket_cuda, "bucket_step_ext_cuda", off_by_one)
+    # PS_EXT_IO set, as the bench sets it: an unset one would hold this
+    # two-chunk grid's live-tile step too (KernelHold)
+    monkeypatch.setenv("PS_EXT_IO", "off")
     chip_smoke.BenchHold()("classic only", state, pv)
     with pytest.raises(AssertionError, match="compact ext step"):
         chip_smoke.BenchHold(ext="compact")("loaded", state, pv)

@@ -2,7 +2,9 @@
 tile aux, the plain version of the tile-scheduled step (rows 5 and 6 of
 PERF.md's kernel table, ``bucket_step_pallas_ext`` with ``compact`` True
 and False), the ext frame, the schedule's enter/exit hooks, the Simulator's lane-chunk
-choice and ``PS_EXT_IO`` mode. The JAX kernels run in interpret mode.
+choice and ``PS_EXT_IO`` mode (the JAX engine's for every value it is set
+to; unset, the port's own default: the live-tile step wherever the scene
+got lane chunks). The JAX kernels run in interpret mode.
 
 Contract:
 - the aux (params with omax, flags, order, sizes): bit-identical to JAX;
@@ -49,6 +51,8 @@ from particle_simulator_tpu_torch.engine.state import SimParams, state_from_nump
 from particle_simulator_tpu_torch.ops import bucket_cuda
 from particle_simulator_tpu_torch.physics import bucket, mie
 from particle_simulator_tpu_torch.physics.step import external_forces
+from particle_simulator_tpu_torch.scenes.library import _scene
+from particle_simulator_tpu_torch.utils import profiling
 
 import chip_smoke
 
@@ -263,19 +267,39 @@ def test_lane_chunks_and_ext_io_mode_match_jax(monkeypatch):
     occ = np.zeros((1024, 1024), int)
     occ[256:768, 256:768] = 3
     assert simulator._lane_chunks_for(occ, bucket.GridConfig(10, 10, 16)) == 8
-    for value in (None, "off", "compact", "auto", "on", "1", "nocompact", "COMPACT", "x"):
-        if value is None:
-            monkeypatch.delenv("PS_EXT_IO", raising=False)
-        else:
-            monkeypatch.setenv("PS_EXT_IO", value)
+    for value in ("off", "compact", "auto", "on", "1", "nocompact", "COMPACT", "x", ""):
+        monkeypatch.setenv("PS_EXT_IO", value)
         ext_io, compact = jsimulator._ext_io_mode()
         assert simulator._ext_io_mode() == (bool(ext_io), compact), value
+    # unset, the JAX engine runs the classic step; the port leaves the choice
+    # to the scene's lane chunks (the Simulator's frame_async)
+    monkeypatch.delenv("PS_EXT_IO", raising=False)
+    assert not jsimulator._ext_io_mode()[0]
+    assert simulator._ext_io_mode() is None
 
 
-def sparse_scene(n_side=12) -> TFrame:
+def test_lane_chunks_either_side_of_the_live_tile_limit():
+    """Hand-built occupancies of the 1M user scene's grid (1024 x 1024 x 16:
+    1024 tiles of 8 rows x 128 buckets at 8 lane chunks) with k live tiles,
+    one live bucket each, in tile order: at 768 (75%) the scene keeps 8
+    lane chunks, so an unset ``PS_EXT_IO`` steps its live tiles; at 769 no
+    candidate is 75% live (385 of 512 tiles at 4 chunks, 193 of 256 at 2),
+    so it gets one and the classic step."""
+    grid = bucket.GridConfig(10, 10, 16)
+    for k, chunks in ((768, 8), (769, 1)):
+        occ = np.zeros((1024, 1024), int)
+        tiles = np.arange(k)
+        occ[tiles // 8 * 8 + 7, tiles % 8 * 128 + 127] = 3
+        assert simulator._lane_chunks_for(occ, grid) == chunks, k
+        assert jsimulator._lane_chunks_for(occ, JGridConfig(10, 10, 16)) == chunks, k
+
+
+def sparse_scene(n_side=12, centre_x=1.0) -> TFrame:
     """A hex lattice in the left sixth of a 16:1 box: ``_grid_for`` puts it
     on a 256 x 16 x 8 grid (2048 slot lanes, so 2 lane chunks are valid)
-    and its live tiles are one of four."""
+    and its live tiles are two of four (both 8-row blocks of the left
+    chunk). Centred at ``centre_x`` 8 (in box heights) it straddles the two
+    chunks, every tile is live, and the scene gets one lane chunk."""
     frame = TFrame.new()
     meta = frame.metadata
     r0 = MieParams.nitrogen().force0_r()
@@ -285,7 +309,7 @@ def sparse_scene(n_side=12) -> TFrame:
     meta.step_dt = 1e-14
     meta.steps_per_frame = 6
     lat = ParticleLattice((n_side, n_side), distance_factor=1.1, velocity=(0.0, 30.0))
-    lat.hex_square(frame, (side, side / 2), rng=np.random.default_rng(5))
+    lat.hex_square(frame, (side * centre_x, side / 2), rng=np.random.default_rng(5))
     return frame
 
 
@@ -318,6 +342,80 @@ def test_simulator_runs_ext_frames_on_gpu_requests(monkeypatch, mode, kernel):
     assert sim.active_kernel == "bucket-torch-cpu"
 
 
+def test_unset_default_runs_the_live_tile_step_on_a_sparse_scene(monkeypatch):
+    """With ``PS_EXT_IO`` unset, a scene of two lane chunks and two live
+    tiles of four runs the live-tile step, its frames byte-equal to
+    ``PS_EXT_IO=off``; ``frame.ext_default`` counts each of its frames, and
+    none where ``PS_EXT_IO`` is set, to ``compact`` or ``off``."""
+    scene = sparse_scene()
+    runs = {}
+    for value in (None, "compact", "off"):
+        if value is None:
+            monkeypatch.delenv("PS_EXT_IO", raising=False)
+        else:
+            monkeypatch.setenv("PS_EXT_IO", value)
+        monkeypatch.setattr(profiling, "RECORDER", profiling.Recorder())
+        sim = Simulator(bucket.GridConfig(8, 4, 8), device="cpu")
+        sim.load_frame(scene)
+        assert sim._lane_chunks == 2
+        frames = []
+        with profiling.recording():
+            for _ in range(3):
+                sim.frame_async()
+                frames.append(sim.read_frame().bytes)
+        counted = profiling.export()["counters"].get("frame.ext_default", 0)
+        runs[value] = (frames, sim.active_kernel, counted)
+    assert [runs[v][1:] for v in runs] == [("bucket-compact-torch-cpu", 3),
+                                           ("bucket-compact-torch-cpu", 0),
+                                           ("bucket-torch-cpu", 0)]
+    assert runs[None][0] == runs["off"][0] == runs["compact"][0]
+
+
+@pytest.mark.parametrize("case", ["no candidate", "tiles over 75% live"])
+def test_unset_default_keeps_the_classic_step(monkeypatch, case):
+    """With ``PS_EXT_IO`` unset, a scene of one lane chunk runs the classic
+    step, and ``frame.ext_default`` counts nothing: a grid too narrow to
+    split, and a grid that could split but whose tiles are all live."""
+    monkeypatch.delenv("PS_EXT_IO", raising=False)
+    monkeypatch.setattr(profiling, "RECORDER", profiling.Recorder())
+    if case == "no candidate":
+        scene = _scene(12, 12, distance_factor=1.1, speed=30.0, steps_per_frame=6)
+        sim = Simulator(bucket.GridConfig(4, 4, 8), device="cpu")
+    else:
+        scene = sparse_scene(centre_x=8.0)
+        sim = Simulator(bucket.GridConfig(8, 4, 8), device="cpu")
+    sim.load_frame(scene)
+    assert sim._lane_chunks == 1
+    assert bool(simulator._lane_chunk_candidates(sim.grid)) == (case != "no candidate")
+    with profiling.recording():
+        sim.frame_async()
+    assert sim.active_kernel == "bucket-torch-cpu"
+    assert "frame.ext_default" not in profiling.export()["counters"]
+
+
+@pytest.mark.parametrize("case", ["cpu mesh", "cpu request"])
+def test_unset_default_leaves_sharded_and_cpu_requests_alone(monkeypatch, case):
+    """With ``PS_EXT_IO`` unset, the scene the default sends to the
+    live-tile step keeps the sharded runner on a mesh and the classic step
+    on a ``CPU_THREAD_POOL`` request."""
+    from particle_simulator_tpu_torch.parallel import domain
+
+    monkeypatch.delenv("PS_EXT_IO", raising=False)
+    monkeypatch.setattr(profiling, "RECORDER", profiling.Recorder())
+    scene = sparse_scene()
+    mesh = None
+    if case == "cpu mesh":
+        mesh = domain.make_mesh(devices=["cpu"] * 2)
+    else:
+        scene.metadata.device = simulator.Device.CPU_THREAD_POOL
+    sim = Simulator(bucket.GridConfig(8, 4, 8), device="cpu", mesh=mesh)
+    sim.load_frame(scene)
+    with profiling.recording():
+        sim.frame_async()
+    assert sim.active_kernel == ("sharded-torch-cpu" if mesh else "bucket-torch-cpu")
+    assert "frame.ext_default" not in profiling.export()["counters"]
+
+
 def test_ext_wrapper_validates_and_keeps_held_buffers():
     """The ext step's wrapper checks its pair and aux, and neither it nor
     the ext frame writes a buffer of the state it was given."""
@@ -345,6 +443,33 @@ def test_ext_wrapper_validates_and_keeps_held_buffers():
         bucket_cuda.bucket_step_ext_cuda(state.to("meta"), aux, True)
     with pytest.raises(ValueError):
         bucket.ext_step_aux(state, pv, 3)
+
+
+def test_ext_frame_copies_the_given_state_twice_and_a_rebucket_output_once(monkeypatch):
+    """The ext frame's first run of steps steps between two copies of the
+    state it was given (a readback may hold it); each later run between the
+    rebucket's output, which only the frame holds, and one copy. The frame
+    equals the classic one."""
+    fields, meta = lattice_fields(CFG, 8, 8, (0.25, 0.25))
+    state, params = from_reference(fields, meta)
+    pv = params.vector()
+    pairs = []
+    real = bucket_cuda.ext_pair
+
+    def spy(s, own=False):
+        pairs.append((s, own, real(s, own)))
+        return pairs[-1][2]
+
+    monkeypatch.setattr(bucket_cuda, "ext_pair", spy)
+    out = bucket_cuda.run_frame_bucket_cuda(state, pv, 10, 4, lane_chunks=C, ext_io=True,
+                                            block_rows=ROWS)
+    assert [own for _, own, _ in pairs] == [False, True, True, True]  # steps 1 | 4 | 4 | 1
+    assert not any(a.data_ptr() == b.data_ptr()
+                   for p in pairs[0][2] for a, b in zip(p[:4], state[:4]))
+    for s, _, (cur, spare) in pairs[1:]:
+        assert cur is s and not any(a.data_ptr() == b.data_ptr()
+                                    for a, b in zip(cur[:4], spare[:4]))
+    assert_same(out, bucket.run_frame_bucket(state, pv, 10, 4))
 
 
 def staged_runs_step(state: ParticleState, pv: torch.Tensor) -> ParticleState:
