@@ -6,7 +6,9 @@ For each seed it draws the cell's scene, computes its first frame with the
 reference in f32 (what the comparison holds the program to) and with the
 reference in bfloat16 in the program's place (the control: the pair terms,
 their sum and the kick one precision lower), and prints, as one JSON line a
-seed, how many particles the comparison finds different. The limit of every
+seed, how many particles the comparison finds different. A served cell's
+scene, frames and comparison are its configuration's reference's
+(``benchmark/references/``), as in its runs. The limit of every
 number compared is 0, so a control that reads above 0 on every seed fails
 as it must. The benchmark's own runs never run this.
 """
@@ -30,23 +32,24 @@ def control_reading(workload: str, seed: int, device: str, root: str = cells.ROO
     steps = int(cfg["steps_per_frame"])
     t = time.perf_counter()
     if traffic["mode"] == "serve":
-        parts, meta = scenes.hex_lattice(cfg, [seed, 0])
-        g = scenes.scene_grid(parts, meta)
-        lay = refsim.from_particles(*scenes.bucketize(parts, g), g, device)
-        boxes = None
+        ref = cells.reference(cfg, root)
+        parts, meta = ref.draw(cfg, seed, 0, 0)
+        lay = ref.loaded(parts, meta, device)
+        sound = ref.pack(ref.frame(lay, meta, steps, device))
+        control = ref.pack(ref.frame(lay, meta, steps, device, low=True))
+        compared, mismatch = len(sound), refsim.mismatches(control, sound)
     else:
         g = frames.grid_of(cfg)
         scene, meta, live = scenes.dense_crystal(g, seed, cfg["step_dt"], device, cfg["fill"])
-        lay = refsim.from_grid(scene, g)
         boxes = frames.region(g, live, seed, traffic, steps)
-    inner, outer = (None, None) if boxes is None else boxes
-    lay = frames.crop(lay, outer)
-    params = refsim.params_vector(meta, device)
-    sound = frames.crop(refsim.frame(lay, params, steps), inner)
-    control = frames.crop(refsim.frame(lay, params, steps, low=True), inner)
-    return {"workload": workload, "seed": seed, "compared": len(sound.x),
-            "control_mismatch": refsim.layout_mismatches(control, sound), "limit": 0,
-            "seconds": time.perf_counter() - t}
+        inner, outer = (None, None) if boxes is None else boxes
+        lay = frames.crop(refsim.from_grid(scene, g), outer)
+        params = refsim.params_vector(meta, device)
+        sound = frames.crop(refsim.frame(lay, params, steps), inner)
+        control = frames.crop(refsim.frame(lay, params, steps, low=True), inner)
+        compared, mismatch = len(sound.x), refsim.layout_mismatches(control, sound)
+    return {"workload": workload, "seed": seed, "compared": compared,
+            "control_mismatch": mismatch, "limit": 0, "seconds": time.perf_counter() - t}
 
 
 def main() -> int:

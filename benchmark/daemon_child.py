@@ -15,8 +15,11 @@ steer it, each acted on at the next frame the daemon dispatches:
 With ``--trace 1`` it keeps a span (name, start, end in Unix ns) of every
 ``Simulator.read_frame`` and ``Simulator.load_frame`` call. When the daemon
 stops, it writes ``DIR/daemon.json`` (spans, the trace's reduction, the
-device's memory peak, the foreign modules it found) and ``DIR/snap<k>.npz``.
-It exits 3 if it found a module of JAX or of the JAX package.
+device's memory peak, the foreign modules it found) and ``DIR/snap<k>.npz``:
+the live slots' fields, their ``index`` in the flat state and the
+Simulator's ``data_structure``, whatever the layout; of a bucket grid also
+its ``grid`` (bx_log2, by_log2, cap) and each slot's ``bucket`` and
+``slot``. It exits 3 if it found a module of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -93,6 +96,7 @@ def main() -> int:
             take = control.snap > len(snaps) and cursor != last_cursor[0] and self.state is not None
             if take:
                 snaps.append({"cursor": cursor, "grid": tuple(self.grid)[:3],
+                              "data_structure": int(self.data_structure),
                               "state": tuple(a.clone() for a in self.state)})
         for cmd in cmds:
             t = time.perf_counter()
@@ -127,14 +131,16 @@ def main() -> int:
         reduced.update(trace.reduce(tracer.ops, tracer.t0, tracer.t1, spans))
     peak = torch.cuda.max_memory_allocated() if args.device == "cuda" else None
     for k, snap in enumerate(snaps):
-        x, y, vx, vy, ty = (a.cpu().numpy() for a in snap["state"])
-        live = np.flatnonzero(ty.reshape(-1) >= 0)
-        cap = snap["grid"][2]
-        np.savez(os.path.join(args.out, f"snap{k}.npz"), grid=np.array(snap["grid"]),
+        fields = [a.cpu().numpy() for a in snap["state"]]
+        live = np.flatnonzero(fields[4].reshape(-1) >= 0)
+        arrays = {name: a.reshape(-1)[live] for name, a in zip(("x", "y", "vx", "vy", "ty"),
+                                                              fields)}
+        if fields[0].ndim == 3:  # a (BY, BX, CAP) bucket grid
+            cap = snap["grid"][2]
+            arrays.update(grid=np.array(snap["grid"]), bucket=live // cap, slot=live % cap)
+        np.savez(os.path.join(args.out, f"snap{k}.npz"),
                  cursor=np.array(snap["cursor"], np.float32),
-                 x=x.reshape(-1)[live], y=y.reshape(-1)[live], vx=vx.reshape(-1)[live],
-                 vy=vy.reshape(-1)[live], ty=ty.reshape(-1)[live],
-                 bucket=live // cap, slot=live % cap)
+                 data_structure=np.array(snap["data_structure"]), index=live, **arrays)
     foreign = nojax.foreign_modules()
     with open(os.path.join(args.out, "daemon.json"), "w") as f:
         json.dump({"shipped": shipped, "spans": spans, "trace": reduced, "memory_peak": peak,

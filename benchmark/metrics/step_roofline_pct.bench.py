@@ -1,6 +1,7 @@
 """The step kernel's share of its least time (classic on one card, halo on
 each card of several, over the pairs of that card's shard), the mean over
-the cards."""
+the cards. Each runner reads a step's device time from the launches its
+``STEP_KERNELS`` names (``psbench/frames.py``, ``rank_child.py``)."""
 
 from psbench import stats
 

@@ -4,8 +4,10 @@ A cell names a configuration (``BENCHMARK.json``'s ``configs`` entry, whose
 ``file`` holds it), a traffic mix (``benchmark/traffic/<traffic>.json``) and
 its chips; a metric is read by ``benchmark/metrics/<name>.py``, whose
 ``read(record)`` returns the number or None when the run gave it nothing to
-read. Adding a configuration, a mix or a metric adds files and entries and
-edits none.
+read; a served configuration's data layout is checked by the reference its
+``reference`` key names (``benchmark/references/<name>.py``, default
+``buckets``). Adding a configuration, a layout, a mix or a metric adds files
+and entries and edits none.
 """
 
 from __future__ import annotations
@@ -53,11 +55,25 @@ def metrics(bench: dict, workload: str, traced: bool) -> list[dict]:
             ("workloads" not in m and m["moves"] in names)]
 
 
-def reader(name: str, root: str = ROOT):
-    """The ``read`` function of ``benchmark/metrics/<name>.py``."""
-    path = os.path.join(root, NAME, "metrics", name + ".py")
-    spec = importlib.util.spec_from_file_location("psbench_metric_" + name.replace(".", "_"),
+def _module(kind: str, name: str, root: str):
+    """The module ``benchmark/<kind>/<name>.py`` of the checkout at ``root``."""
+    path = os.path.join(root, NAME, kind, name + ".py")
+    spec = importlib.util.spec_from_file_location(f"psbench_{kind}_{name.replace('.', '_')}",
                                                   path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def reader(name: str, root: str = ROOT):
+    """The ``read`` function of ``benchmark/metrics/<name>.py``."""
+    return _module("metrics", name, root).read
+
+
+def reference(config: dict, root: str = ROOT):
+    """The reference module of a served configuration's data layout:
+    ``benchmark/references/<config["reference"]>.py``, ``buckets`` when the
+    configuration names none. It gives ``draw``, ``loaded``, ``frame``,
+    ``pack``, ``from_snapshot`` and ``least`` (``references/buckets.py``
+    says what each returns)."""
+    return _module("references", config.get("reference", "buckets"), root)

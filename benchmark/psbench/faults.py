@@ -6,11 +6,17 @@ benchmark's own runs never set it. Each fault breaks the timed path
 underneath the harness:
 
 - ``step_identity``: every step returns its state unchanged;
-- ``half_batch``: every step leaves the upper half of the bucket rows
-  unstepped;
+- ``half_batch``: every step leaves the upper half of the bucket rows (of a
+  flat CompactArray state: of its live slots) unstepped;
 - ``no_exchange``: the ring exchange between shards moves nothing;
 - ``altered_answer``: one particle's velocity is altered where the frame
   is produced (the daemon's readback, the frame runners' output).
+
+The step faults reach every step the served and the frames paths take: the
+classic step (``bucket_step_cuda``), the live-tile and every-tile step of
+the ext-layout frame (``_launch_ext``, under ``bucket_step_ext_cuda`` and
+the frame's own loop), the halo step and the all-pairs step
+(``allpairs_step_cuda``).
 """
 
 from __future__ import annotations
@@ -31,6 +37,24 @@ def _alter(state):
     return state._replace(vx=vx)
 
 
+def _half(new, old):
+    """``new`` with the upper half of its bucket rows, or of a flat state's
+    live slots, put back to ``old``'s."""
+    fields = []
+    if new.x.dim() == 1:
+        live = torch.nonzero(old.ty >= 0).reshape(-1)
+        upper = live[len(live) // 2:]
+    for a, b in zip(new, old):
+        a = a.clone()
+        if a.dim() == 1:
+            a[upper] = b[upper]
+        else:
+            half = a.shape[-3] // 2
+            a[..., half:, :, :] = b[..., half:, :, :]
+        fields.append(a)
+    return type(new)(*fields)
+
+
 def apply(name: str | None = None) -> list:
     """Plant the fault ``name`` (default: ``PSBENCH_FAULT``'s); returns what
     ``undo`` puts back."""
@@ -40,32 +64,32 @@ def apply(name: str | None = None) -> list:
     if name not in NAMES:
         raise ValueError(f"unknown fault {name!r}")
     from particle_simulator_tpu_torch.engine import simulator
-    from particle_simulator_tpu_torch.ops import bucket_cuda
+    from particle_simulator_tpu_torch.ops import allpairs_cuda, bucket_cuda
     from particle_simulator_tpu_torch.parallel import domain
 
     saved = [(m, a, getattr(m, a)) for m, a in (
-        (bucket_cuda, "bucket_step_cuda"), (bucket_cuda, "run_frame_bucket_cuda"),
+        (bucket_cuda, "bucket_step_cuda"), (bucket_cuda, "_launch_ext"),
+        (allpairs_cuda, "allpairs_step_cuda"), (bucket_cuda, "run_frame_bucket_cuda"),
         (domain, "bucket_step_halo_cuda"), (domain, "refresh_ring"),
         (domain, "make_sharded_frame_fn"), (simulator.Simulator, "read_frame"))]
     if name in ("step_identity", "half_batch"):
-        step, halo = bucket_cuda.bucket_step_cuda, domain.bucket_step_halo_cuda
-
         def broken(fn):
             def run(state, params):
-                if name == "step_identity":
-                    return state
-                out = fn(state, params)
-                half = state.x.shape[-3] // 2
-                fields = []
-                for new, old in zip(out, state):
-                    new = new.clone()
-                    new[..., half:, :, :] = old[..., half:, :, :]
-                    fields.append(new)
-                return type(out)(*fields)
+                return state if name == "step_identity" else _half(fn(state, params), state)
             return run
 
-        bucket_cuda.bucket_step_cuda = broken(step)
-        domain.bucket_step_halo_cuda = broken(halo)
+        def broken_ext(fn):
+            def run(pair, aux, compact):
+                if name == "step_identity":
+                    return pair
+                out = fn(pair, aux, compact)
+                return out._replace(cur=_half(out.cur, pair.cur))
+            return run
+
+        bucket_cuda.bucket_step_cuda = broken(bucket_cuda.bucket_step_cuda)
+        bucket_cuda._launch_ext = broken_ext(bucket_cuda._launch_ext)
+        allpairs_cuda.allpairs_step_cuda = broken(allpairs_cuda.allpairs_step_cuda)
+        domain.bucket_step_halo_cuda = broken(domain.bucket_step_halo_cuda)
     elif name == "no_exchange":
         domain.refresh_ring = lambda padded, plan, fields=None: None
     else:

@@ -33,6 +33,8 @@ from psbench import faults, refsim, roofline, scenes, trace
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REGION_LIVE = 2_000_000
+# the launches a step's device time is read from: the classic step on one card
+STEP_KERNELS = ("bucket_step_kernel<false>",)
 WARM_FRAMES = 2
 
 
@@ -140,7 +142,7 @@ def _run_single(ctx: dict) -> dict:
         after = refsim.from_grid(tuple(cur), g)
         counts = roofline.counts_of(after.bucket, g.by, g.bx)
         least = roofline.step_least_ms(roofline.pairs_from_counts(counts), len(after.x))
-        step_ms = trace.kernel_mean_ms(red, "bucket_step_kernel")
+        step_ms = trace.kernel_mean_ms(red, STEP_KERNELS)
         record["trace"] = red
         record["ranks"] = [{"trace": red, "step_least": least, "step_ms": step_ms}]
     params = refsim.params_vector(meta, dev)

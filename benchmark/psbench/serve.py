@@ -11,12 +11,14 @@ configuration's scene, drains every frame, and drives the mix:
   fewer each time, sent that long after the previous scene's first stepped
   frame arrived ("send lattice", "Edit & Resend").
 
-``correct`` compares what the daemon shipped with the reference
-(``refsim``): the echo of every checked scene and its first stepped frame,
-computed from the scene the harness sent; and, where the mix drags, the
-frame that follows each of the program's states copied at seed-drawn
-instants of the window (the snapshot, itself compared with its own shipped
-frame), computed from that state. All comparisons are exact.
+``correct`` compares what the daemon shipped with the reference that the
+configuration names (``benchmark/references/<name>.py``, which draws the
+scenes and knows their data layout): the echo of every checked scene and
+its first stepped frame, computed from the scene the harness sent; and,
+where the mix drags, the frame that follows each of the program's states
+copied at seed-drawn instants of the window (the snapshot, itself compared
+with its own shipped frame), computed from that state. Every comparison is
+``refsim.mismatches`` of the shipped particles' 20 bytes, limit 0.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from collections import deque
 
 import numpy as np
 
-from psbench import refsim, roofline, scenes, stats, wire
+from psbench import cells, refsim, stats, wire
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIRST_FRAME_TIMEOUT_S = 900.0  # the first run in a checkout builds the kernels
@@ -174,6 +176,15 @@ def _cursor(traffic: dict, phase0: float, i: int) -> tuple:
             float(np.float32(0.5 + r * math.sin(angle))))
 
 
+def scene_packet(ref, cfg: dict, seed: int, k: int) -> tuple:
+    """(packet, particles, metadata) of the ``k``-th scene of a run, drawn
+    by the reference ``ref``: after the first, a few particles fewer each
+    time, so that each scene's frames are told apart by their count."""
+    drop = 0 if k == 0 else 1 + 3 * k + int(np.random.default_rng([seed, k, 7]).integers(3))
+    parts, meta = ref.draw(cfg, seed, k, drop)
+    return wire.encode(meta, parts), parts, meta
+
+
 def _edit(meta: np.ndarray, cursor, size: float) -> np.ndarray:
     out = meta.copy()
     out["cursor_pos"] = cursor
@@ -257,6 +268,7 @@ def run(ctx: dict) -> dict:
     """Run one serve cell; returns the record the metric readers and the
     checks read."""
     cfg, traffic, seed = ctx["config"], ctx["traffic"], ctx["seed"]
+    ref = cells.reference(cfg, ctx["root"])
     rng = np.random.default_rng([seed, 1])
     steps = int(cfg["steps_per_frame"])
     link = Link()
@@ -266,10 +278,8 @@ def run(ctx: dict) -> dict:
     try:
         link.accept(300.0, child.proc)
 
-        def scene_packet(k: int) -> tuple:
-            drop = 0 if k == 0 else 1 + 3 * k + int(np.random.default_rng([seed, k, 7]).integers(3))
-            parts, meta = scenes.hex_lattice(cfg, [seed, k], drop=drop)
-            return wire.encode(meta, parts), parts, meta
+        def draw(k: int) -> tuple:
+            return scene_packet(ref, cfg, seed, k)
 
         def send_scene(scene) -> float:
             packet, parts, meta = scene
@@ -277,7 +287,7 @@ def run(ctx: dict) -> dict:
             scenes_sent.append((t, len(parts), parts, meta))
             return t
 
-        t_send = send_scene(scene_packet(0))
+        t_send = send_scene(draw(0))
         if not link.wait(_first_stepped(scenes_sent[0][1], t_send), FIRST_FRAME_TIMEOUT_S):
             raise RuntimeError("the first scene's first stepped frame never came")
         if ctx["trace"]:
@@ -291,7 +301,7 @@ def run(ctx: dict) -> dict:
         if traffic.get("edits_hz"):
             t0, t1 = _drag(link, child, ctx, scenes_sent[0][3], rng, edits)
         else:
-            t0, t1 = _resend(link, child, ctx, scene_packet, send_scene, scenes_sent)
+            t0, t1 = _resend(link, child, ctx, draw, send_scene, scenes_sent)
         t0_unix = time.time_ns() - int((time.perf_counter() - t0) * 1e9)
         t1_unix = t0_unix + int((t1 - t0) * 1e9)
         n_snaps = len(child.snap_req)
@@ -304,7 +314,7 @@ def run(ctx: dict) -> dict:
         raise RuntimeError(f"the daemon exited {child.proc.returncode}:\n{tail}")
     with open(os.path.join(ctx["workdir"], "daemon.json")) as f:
         daemon = json.load(f)
-    record = _record(ctx, link, daemon, scenes_sent, edits, child.snap_req, (t0, t1),
+    record = _record(ctx, ref, link, daemon, scenes_sent, edits, child.snap_req, (t0, t1),
                      (t0_unix, t1_unix), steps)
     with open(os.path.join(ctx["workdir"], "daemon.log")) as f:
         record["log_tail"] = [ln for ln in f.read().splitlines()
@@ -343,7 +353,7 @@ def _drag(link, child, ctx, meta0, rng, edits):
     return t0, t1
 
 
-def _resend(link, child, ctx, scene_packet, send_scene, scenes_sent):
+def _resend(link, child, ctx, draw_scene, send_scene, scenes_sent):
     traffic, seconds = ctx["traffic"], ctx["seconds"]
     dwell = float(traffic["resend_dwell_s"])
 
@@ -361,10 +371,10 @@ def _resend(link, child, ctx, scene_packet, send_scene, scenes_sent):
     # every scene is drawn and encoded in set-up, so the harness does no
     # host work of its own while the daemon loads one
     warm = int(traffic.get("warmup_resends", 1))
-    drawn = [scene_packet(k) for k in range(1, 1 + warm + int(traffic["scenes_drawn"]))]
+    drawn = [draw_scene(k) for k in range(1, 1 + warm + int(traffic["scenes_drawn"]))]
 
     def scene(k):
-        return drawn[k - 1] if k <= len(drawn) else scene_packet(k)
+        return drawn[k - 1] if k <= len(drawn) else draw_scene(k)
 
     k = 1
     for _ in range(warm):
@@ -383,7 +393,7 @@ def _resend(link, child, ctx, scene_packet, send_scene, scenes_sent):
     return t0, t1
 
 
-def _record(ctx, link, daemon, scenes_sent, edits, snap_req, window, window_unix, steps):
+def _record(ctx, ref, link, daemon, scenes_sent, edits, snap_req, window, window_unix, steps):
     import torch
 
     t0, t1 = window
@@ -395,7 +405,6 @@ def _record(ctx, link, daemon, scenes_sent, edits, snap_req, window, window_unix
               "memory_peak": daemon.get("memory_peak"), "trace": daemon.get("trace") or None}
     checks = []
     # the start: the first scene's echo and first stepped frame
-    g = scenes.scene_grid(scenes_sent[0][2], scenes_sent[0][3])
     pairs_of = stats.scene_frames([s[0] for s in scenes_sent], [s[1] for s in scenes_sent],
                                   times, [c for _, c, _ in frames])
     in_win = [i for i, s in enumerate(scenes_sent) if t0 <= s[0] <= t1]
@@ -412,14 +421,11 @@ def _record(ctx, link, daemon, scenes_sent, edits, snap_req, window, window_unix
             bad_echo += 1
             continue
         parts, meta = scenes_sent[i][2], scenes_sent[i][3]
-        gi = scenes.scene_grid(parts, meta)
-        kept, b, s = scenes.bucketize(parts, gi)
-        lay = refsim.from_particles(kept, b, s, gi, dev)
-        bad_echo += refsim.mismatches(refsim.pack(lay),
-                                      wire.particles(link.kept[found[0]]))
-        ref = refsim.frame(lay, refsim.params_vector(meta, dev), steps)
-        bad_first += refsim.mismatches(refsim.pack(ref), wire.particles(link.kept[found[1]]))
-        del lay, ref
+        lay = ref.loaded(parts, meta, dev)
+        bad_echo += refsim.mismatches(ref.pack(lay), wire.particles(link.kept[found[0]]))
+        nxt = ref.frame(lay, meta, steps, dev)
+        bad_first += refsim.mismatches(ref.pack(nxt), wire.particles(link.kept[found[1]]))
+        del lay, nxt
     checks += [("scene_echo_mismatch", bad_echo, 0), ("first_frame_mismatch", bad_first, 0)]
     if in_win or len(scenes_sent) > 1:
         sw = [pairs_of[i] for i in in_win]
@@ -446,25 +452,21 @@ def _record(ctx, link, daemon, scenes_sent, edits, snap_req, window, window_unix
                 continue
             with np.load(path) as z:
                 snap = {n: z[n] for n in z.files}
-            sg = scenes.Grid(*(int(v) for v in snap["grid"]))
-            if tuple(sg)[:3] != tuple(g)[:3]:
+            lay = ref.from_snapshot(snap, scenes_sent[0][2], scenes_sent[0][3], dev)
+            if lay is None:
                 missing += 1
                 continue
-            parts = np.zeros(len(snap["x"]), dtype=wire.PARTICLE_DTYPE)
-            for name in wire.PARTICLE_DTYPE.names:
-                parts[name] = snap[name].view(wire.PARTICLE_DTYPE[name])
-            lay = refsim.from_particles(parts, snap["bucket"], snap["slot"], g, dev)
             before, after = link.snap_found[k]
-            bad_pack += refsim.mismatches(refsim.pack(lay), wire.particles(link.kept[before]))
+            bad_pack += refsim.mismatches(ref.pack(lay), wire.particles(link.kept[before]))
             meta = _edit(scenes_sent[0][3], tuple(float(v) for v in snap["cursor"]),
                          ctx["traffic"]["cursor_size"])
-            ref = refsim.frame(lay, refsim.params_vector(meta, dev), steps)
-            bad_next += refsim.mismatches(refsim.pack(ref), wire.particles(link.kept[after]))
+            nxt = ref.frame(lay, meta, steps, dev)
+            bad_next += refsim.mismatches(ref.pack(nxt), wire.particles(link.kept[after]))
             if k == 0:
-                counts = roofline.counts_of(lay.bucket, g.by, g.bx)
-                record["step_least"] = roofline.step_least_ms(
-                    roofline.pairs_from_counts(counts), len(lay.x))
-            del lay, ref
+                least = ref.least(lay)
+                if least is not None:
+                    record["step_least"] = least
+            del lay, nxt
         checks += [("snapshot_missing", missing, 0), ("snapshot_readback_mismatch", bad_pack, 0),
                    ("snapshot_next_frame_mismatch", bad_next, 0)]
     unanswered = record.get("failed", 0)

@@ -120,9 +120,12 @@ def reduce(ops, t0: int, t1: int, spans=()) -> dict:
             "kernels": {n: [c, tot / c] for n, (c, tot) in kernels.items()}}
 
 
-def kernel_mean_ms(reduced: dict, part: str):
-    """Mean device ms of the launches of the kernels whose name holds
-    ``part`` (None when the trace holds none)."""
-    hits = [(c, c * m) for n, (c, m) in reduced.get("kernels", {}).items() if part in n]
+def kernel_mean_ms(reduced: dict, names: tuple[str, ...]):
+    """Mean device ms of the launches of the kernels whose short names
+    (``short_name``) are in ``names``, each matched whole (None when the
+    trace holds none)."""
+    if isinstance(names, str):
+        raise TypeError("names is a tuple of whole kernel names")
+    hits = [(c, c * m) for n, (c, m) in reduced.get("kernels", {}).items() if n in names]
     count = sum(c for c, _ in hits)
     return None if not count else sum(t for _, t in hits) / count / 1e6

@@ -44,7 +44,7 @@ BOLTZMANN = 1.380649e-23
 # (sigma, epsilon, n, m) of the editor's two default species
 NITROGEN = (3.609e-10, 105.79 * BOLTZMANN, 14.08, 6.0)
 ARGON = (3.404e-10, 117.84 * BOLTZMANN, 12.085, 6.0)
-MATRIX_BUCKETS, GPU = 1, 0
+COMPACT_ARRAY, MATRIX_BUCKETS, GPU = 0, 1, 0  # upstream particle.rs:52-78
 
 
 def force0_r(species) -> float:
@@ -97,6 +97,15 @@ def decode_header(raw) -> tuple[int, np.ndarray]:
             or hdr["signature_end"].tobytes() != SIGNATURE_END):
         raise ValueError("a packet with a bad signature")
     return int(hdr["particle_count"]), hdr["metadata"].copy()
+
+
+def from_fields(fields) -> np.ndarray:
+    """Particles of the wire's dtype from a mapping of its five field
+    arrays (``x``, ``y`` as any 32-bit integer, bit for bit)."""
+    out = np.zeros(len(fields["x"]), dtype=PARTICLE_DTYPE)
+    for name in PARTICLE_DTYPE.names:
+        out[name] = np.asarray(fields[name]).view(PARTICLE_DTYPE[name])
+    return out
 
 
 def particles(packet) -> np.ndarray:

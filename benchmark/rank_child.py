@@ -32,6 +32,9 @@ import torch  # noqa: E402
 
 from psbench import faults, frames, nojax, refsim, roofline, scenes, trace  # noqa: E402
 
+# the launches a step's device time is read from: the halo step of each shard
+STEP_KERNELS = ("bucket_step_kernel<true>",)
+
 
 def save_region(lay: refsim.Layout, box, path: str) -> None:
     lay = frames.crop(lay, box)
@@ -162,7 +165,7 @@ def main() -> int:
         red = trace.reduce(tracer.ops, tracer.t0, tracer.t1, spans)
         out["trace"] = red
         out["step_least"] = roofline.step_least_ms(pairs, live_r)
-        out["step_ms"] = trace.kernel_mean_ms(red, "bucket_step_kernel")
+        out["step_ms"] = trace.kernel_mean_ms(red, STEP_KERNELS)
     with open(os.path.join(args.out, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()

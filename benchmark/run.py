@@ -64,7 +64,7 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, device: str
     workdir = tempfile.mkdtemp(prefix="psbench-", dir=os.environ.get("TMPDIR"))
     ctx = {"workload": workload, "config": config, "traffic": traffic,
            "seed": int(seed) % 2**63, "seconds": float(seconds), "trace": int(traced),
-           "device": device, "chips": int(wl["chips"]), "workdir": workdir}
+           "device": device, "chips": int(wl["chips"]), "workdir": workdir, "root": root}
     with open(os.path.join(workdir, "ctx.json"), "w") as f:
         json.dump(ctx, f)
     try:

@@ -51,7 +51,7 @@ def test_finds_a_cell_config_mix_and_metric_it_was_not_edited_for(tiny_root):
 def test_metric_lists_follow_benchmark_json():
     bench = cells.load()
     assert [m["name"] for m in cells.metrics(bench, "user1m-serve-drag", False)] == [
-        "served_fps", "edit_lag_p95_ms", "setup_s"]
+        "served_fps", "setup_s"]
     traced = [m["name"] for m in cells.metrics(bench, "dense1m-frames", True)]
     assert traced == ["step_roofline_pct.bench", "mfu.bench", "device_idle_pct.bench"]
     for m in bench["end_to_end"] + bench["per_layer"]:
@@ -64,20 +64,48 @@ def test_every_cell_reads_its_metrics_from_a_record():
     record = {"window_s": 30.0, "frame_times": [0.1 * i for i in range(300)], "steps": 100,
               "edit_lag_ms": [300.0] * 10, "edit_lag_frames": [7] * 10, "setup_s": 20.0,
               "step_least": {"bound_ms": 0.068}, "frames": 1000, "particle_steps": 1e11,
-              "trace": {"idle_pct": 1.0, "kernels": {"bucket_step_kernel<false>": [10, 3e5]}},
+              "trace": {"idle_pct": 1.0,
+                        "kernels": {"bucket_step_kernel_tiles<true>": [10, 3e5]}},
               "ranks": [{"step_least": {"bound_ms": 0.11}, "step_ms": 0.25,
                          "exchange": {"seconds": 1.0, "steps": 1000}}]}
     read = {m: cells.reader(m)(record) for m in (
-        "served_fps", "edit_lag_p95_ms", "setup_s", "particle_steps_per_s", "mfu.serve",
+        "served_fps", "edit_lag_p95_ms.serve", "setup_s", "particle_steps_per_s", "mfu.serve",
         "mfu.bench", "step_roofline_pct.serve", "step_roofline_pct.bench",
         "exchange_host_ms.4card", "edit_lag_frames.serve", "device_idle_pct.bench")}
-    assert read["served_fps"] == 10.0 and read["edit_lag_p95_ms"] == 300.0
+    assert read["served_fps"] == 10.0 and read["edit_lag_p95_ms.serve"] == 300.0
     assert read["mfu.serve"] == pytest.approx(100 * 0.068e-3 * 100 * 300 / 30)
     assert read["mfu.bench"] == pytest.approx(100 * 0.11e-3 * 100 * 1000 / 30)
     assert read["step_roofline_pct.serve"] == pytest.approx(100 * 0.068 / 0.3)
     assert read["step_roofline_pct.bench"] == pytest.approx(44.0)
     assert read["exchange_host_ms.4card"] == 1.0 and read["edit_lag_frames.serve"] == 7
     assert read["particle_steps_per_s"] == pytest.approx(1e11 / 30)
+
+
+def test_each_step_reader_reads_only_its_own_kernel():
+    import rank_child
+    from psbench import frames
+
+    ms = {"bucket_step_kernel<false>": 0.25, "bucket_step_kernel<true>": 0.5,
+          "bucket_step_kernel_tiles<true>": 0.125, "bucket_step_kernel_tiles<false>": 1.0,
+          "allpairs_step_kernel": 2.0, "bucket_dest_kernel<false>": 4.0}
+    red = {"kernels": {n: [10, m * 1e6] for n, m in ms.items()}}
+    assert trace.kernel_mean_ms(red, frames.STEP_KERNELS) == 0.25
+    assert trace.kernel_mean_ms(red, rank_child.STEP_KERNELS) == 0.5
+    served = cells.reader("step_roofline_pct.serve")({"trace": red,
+                                                      "step_least": {"bound_ms": 0.1}})
+    assert served == pytest.approx(80.0)  # 0.1 ms of 0.125
+
+
+def test_every_configuration_carries_its_cpu_cut(tiny_root):
+    configs = os.path.join(cells.BENCH_DIR, "configs")
+    for name in sorted(os.listdir(configs)):
+        with open(os.path.join(configs, name)) as f:
+            full = json.load(f)
+        with open(os.path.join(tiny_root, cells.NAME, "configs", name)) as f:
+            tiny = json.load(f)
+        cut = full.pop("cpu_cut")
+        assert cut and tiny == {**full, **cut}
+        assert tiny["steps_per_frame"] == 20
 
 
 def test_percentiles_cover_every_sample_with_a_stall():
@@ -195,8 +223,10 @@ def test_trace_reduction_counts_idle_edges_and_names_the_host():
     gaps = dict(red["idle_gaps"])
     assert gaps["host in read_frame, device after copy"] == pytest.approx(2e-3)
     assert gaps["host in no harness span, device after window start"] == pytest.approx(1e-3)
-    assert trace.kernel_mean_ms(red, "bucket_step_kernel") == pytest.approx(2.0)
-    assert trace.kernel_mean_ms(red, "absent") is None
+    assert trace.kernel_mean_ms(red, ("bucket_step_kernel<false>",)) == pytest.approx(2.0)
+    assert trace.kernel_mean_ms(red, ("absent",)) is None
+    with pytest.raises(TypeError):
+        trace.kernel_mean_ms(red, "bucket_step_kernel<false>")
     assert trace.short_name("void bucket_step_kernel<true>(int const*, int)") == \
         "bucket_step_kernel<true>"
 
