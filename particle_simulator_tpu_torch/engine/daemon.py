@@ -38,7 +38,8 @@ send). ``sim.load_frame`` (``load.grid_pick``, ``load.bucketize``,
 edits; the counters ``poll.superseded``, ``readback.redo`` and
 ``frame.ext_default`` count the editor frames a poll dropped for a newer
 one, the widened readbacks and the frames an unset ``PS_EXT_IO`` sent to
-the live-tile step.
+the live-tile step; ``frame.allpairs`` and ``allpairs.swept_pairs`` the
+frames sent to the all-pairs step and the pair evaluations they sweep.
 
 Run:  python -m particle_simulator_tpu_torch.engine.daemon [--addr HOST:PORT]
 """

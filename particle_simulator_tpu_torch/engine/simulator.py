@@ -38,7 +38,11 @@ is recorded unless recording is on) share it: ``sim.load_frame`` (with
 ``sim.read_frame`` (with ``readback.wait``, the wait for the copy, and
 ``readback.unpack``, the host work after it). The counter ``readback.redo``
 counts the readbacks widened and done again, ``frame.ext_default`` the
-frames an unset ``PS_EXT_IO`` sent to the live-tile step.
+frames an unset ``PS_EXT_IO`` sent to the live-tile step, ``frame.allpairs``
+the frames sent to the all-pairs step and ``allpairs.swept_pairs`` the pair
+evaluations those frames' launches sweep (every slot, tombstones included,
+squared, times the steps; beside the live pairs that a step's least time
+counts, it shows the padding up to ``compact_capacity``).
 
 Devices: a ``GPU`` request runs the CUDA kernels on a CUDA ``Simulator``;
 ``CPU_THREAD_POOL`` and ``CPU_MAIN_THREAD`` move the scene to CPU tensors,
@@ -437,6 +441,9 @@ class Simulator:
                 return
             where = "cuda" if self.run_device.type == "cuda" else "torch-cpu"
             if self.data_structure == DataStructure.COMPACT_ARRAY:
+                slots = self.state.x.shape[0]
+                profiling.count("frame.allpairs")
+                profiling.count("allpairs.swept_pairs", slots * slots * steps)
                 self.state = run_frame_allpairs_cuda(self.state, self._pvec, steps)
                 self.active_kernel = f"allpairs-{where}"
             else:
