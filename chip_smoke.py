@@ -28,8 +28,9 @@ exits non-zero without printing a result):
 4. slice: the port's headless editor (a subprocess,
    ``particle_simulator_tpu_torch.editor.headless``) sends a 1024x1024
    lattice (1,048,576 particles) over TCP and the port's ``serve`` ships 6
-   frames back through the bucket kernels; every frame must be finite and
-   every kernel launched;
+   frames back through the runner the scene picks (the live-tile step where
+   it loads with more than one lane chunk, else the classic step); every
+   frame must be finite, every kernel of that runner launched and no other;
 5. throughput (printed after phase 22): phase 22's dense bench line, 10
    timed 100-step frames of ``run_frame_bucket_cuda`` on the dense scene
    (particle-steps/s, sim-steps/s);
@@ -86,12 +87,11 @@ exits non-zero without printing a result):
     turns, with omax and the live-tile share after each compact one), the
     host's time to enqueue one frame of each and the device's busy share
     over two frames of each; the readback check: a ticket started on frame k of a
-    Simulator serving with PS_EXT_IO=compact reads the bytes of a copy
-    taken before frame k+1, whose run left the held state unchanged;
-14. ext slice: the 1024x1024 editor lattice served as in phase 4 with
-    PS_EXT_IO=compact, nocompact and off: frames finite, the runner and
-    its kernels launched, the frame period; then a profiled serve of each
-    for the busy share;
+    Simulator serving the scene (the live-tile frame) reads the bytes of a
+    copy taken before frame k+1, whose run left the held state unchanged;
+14. (folded into phases 4 and 11: the one-device serve of the 1024x1024
+    editor lattice runs the runner its scene picks, and phase 11 profiles
+    it);
 15. configs 1-3: ``scripts/torch_bench_configs.py``'s ``bench_config`` on the
     card: liquid-droplet-2k and gas-diffusion-16k as CompactArray,
     solid-crystal-64k as MatrixBuckets, 20 timed frames of 100 steps behind
@@ -120,7 +120,7 @@ exits non-zero without printing a result):
     ``--size``, the stats line; one frame under ``utils/profiling.py:trace``
     with an ``annotate("dispatch")`` range: the trace file names the range
     and the step kernel;
-20. (run right after phase 14) several processes
+20. (run right after phase 13) several processes
     (``parallel/multihost.py``): two processes share the card over gloo,
     the ring staged through host memory, on the (2, 2) global mesh of two
     shards each. First the dense scene's three 100-step
@@ -151,15 +151,15 @@ exits non-zero without printing a result):
     of ``bench.py``) in this process at bench.py's default sizes: the dense
     grid (1,036,320 live on 512x256x8, 10 timed frames of 100 steps),
     ``--per-frame``, ``--sharded`` on a (1, 1) mesh of the first card, and
-    the 1M user scene (the 1000 x 1000 lattice of phases 12 and 13) with
-    ``--ext-io off``, ``compact`` and ``nocompact``. Each line must carry
+    the 1M user scene (the 1000 x 1000 lattice of phases 12 and 13) through
+    the runner the Simulator picks for it. Each line must carry
     bench.py's keys for its mode (``BENCH_KEYS``), ``"device": "cuda"``,
     the particle count and a finite rate; each kernel of the mode's path
     launched once a step per block and no other kernel; every kernel it
     launched held bit for bit against its plain version on the bench's own
     states as loaded and after the last frame (``BenchHold``, through the
     bench's ``inspect`` hook: rows 1-3 dense, 1h, 7, 8 sharded, 1u, 2, 3
-    and 5 or 6 on the user scene); PS_EXT_IO as it was after each run.
+    and 5 on the user scene).
     Then the entry points (``particle_simulator_tpu_torch/entry.py``, the
     counterpart of ``__graft_entry__.py``) on the card: ``entry()``'s frame
     finite and bit for bit the plain frame's (``physics/bucket.py:
@@ -172,14 +172,13 @@ exits non-zero without printing a result):
     ``--particles 4194304`` (1024x512x8) and ``16000000`` (2048x1024x8,
     16,728,096 live), the 16M grid ``--sharded`` on a (2, 2) mesh of the
     one card, and the user scene at 4M (a 2048 x 2048 lattice on a 2048 x
-    2048 x 16 grid) with ``--ext-io off`` and ``compact``; each row checked
-    and held as phase 22's rows (rows 1-3 dense, 1h, 7, 8 sharded, 1u, 2, 3
-    and 5 on the user scene), each kernel of its path timed at the row's
-    state beside its bound, the device-memory peaks of the run and of the
-    holds, and the seconds of the load, the frames and the holds; then a
-    Simulator serving the 4M user scene with PS_EXT_IO=compact holds its
-    readback (``readback_check``: the wire bytes against the device pack
-    of a copy and its numpy pack).
+    2048 x 16 grid, the live-tile step it picks); each row checked and held
+    as phase 22's rows (rows 1-3 dense, 1h, 7, 8 sharded, 1u, 2, 3 and 5 on
+    the user scene), each kernel of its path timed at the row's state beside
+    its bound, the device-memory peaks of the run and of the holds, and the
+    seconds of the load, the frames and the holds; then a Simulator serving
+    the 4M user scene holds its readback (``readback_check``: the wire bytes
+    against the device pack of a copy and its numpy pack).
 
 24. readback pack: the record-pack kernel (``ops/readback.py:pack_records``,
     ``csrc/readback_pack.cu``) against its plain version (``records_plain``),
@@ -193,7 +192,7 @@ exits non-zero without printing a result):
     (``readback_bound``). ``python3 chip_smoke.py --readback-pack`` runs
     phases 1, 2 and 24 alone.
 
-Every child process (the headless editors of phases 4, 11, 14 and 20, the
+Every child process (the headless editors of phases 4, 11 and 20, the
 web editor and the daemons of phase 21) prints the modules of jax or of the
 JAX package it imported as it exits (``utils/log.py:report_foreign_modules``;
 phase 20's processes in their JSON lines): the run fails on any, or on a
@@ -855,19 +854,13 @@ def busy_summary(ops, window_kernel: str | None = None, skip: int = 0):
             "busy_ms_by_op": {k[:60]: round(v, 4) for k, v in names}}
 
 
-# PS_EXT_IO -> the one-device slice's runner and the kernels of its path
-SLICE_PATHS = {"off": ("bucket", ("step", "dest", "place")),
-               "nocompact": ("bucket-ext", ("step_ext", "dest", "place")),
-               "compact": ("bucket-compact", ("step_compact", "dest", "place"))}
-
-
 def phase_slice(device, lattice: str, frames: int, workdir: str, mesh=None,
-                profile: bool = False, ext_io: str = "off"):
-    """Phases 4, 11 and 14: the port's headless editor against the port's
-    daemon, on one device or sharded over ``mesh``, with ``PS_EXT_IO`` set
-    to ``ext_io``; with ``profile``, the device's busy share over the
-    serve."""
-    from particle_simulator_tpu_torch.bench import ext_io_env
+                profile: bool = False):
+    """Phases 4 and 11: the port's headless editor against the port's
+    daemon, on one device or sharded over ``mesh``; one device runs the
+    runner the scene picks (the live-tile step where it loads with more
+    than one lane chunk). With ``profile``, the device's busy share over
+    the serve."""
     from particle_simulator_tpu_torch.io.transport import Disconnected, Reader
     from particle_simulator_tpu_torch.engine import daemon
     from particle_simulator_tpu_torch.engine.simulator import Simulator
@@ -893,7 +886,7 @@ def phase_slice(device, lattice: str, frames: int, workdir: str, mesh=None,
             for k in bc.LAUNCHES:
                 bc.LAUNCHES[k] = 0
             readback.LAUNCHES["readback_pack"] = 0
-            with ship_times() as times, ext_io_env(ext_io):
+            with ship_times() as times:
                 t0 = time.perf_counter()
                 # the steady window starts with the third frame's first step
                 steady = dict(window_kernel="bucket_step", skip=200)
@@ -913,7 +906,11 @@ def phase_slice(device, lattice: str, frames: int, workdir: str, mesh=None,
     child_modules(log_text, "editor", "the headless editor")
     if shipped != frames:
         raise AssertionError(f"daemon shipped {shipped} of {frames} frames")
-    runner, path = ("sharded", HALO_KERNELS) if mesh is not None else SLICE_PATHS[ext_io]
+    if mesh is not None:
+        runner, path = "sharded", HALO_KERNELS
+    else:
+        step = "step_compact" if sim._lane_chunks > 1 else "step"
+        runner, path = STEP_RUNNERS[step], (step, "dest", "place")
     if sim.active_kernel != f"{runner}-{'cuda' if device.startswith('cuda') else 'torch-cpu'}":
         raise AssertionError(f"frames ran through {sim.active_kernel}")
     counts = []
@@ -943,14 +940,14 @@ def phase_slice(device, lattice: str, frames: int, workdir: str, mesh=None,
         raise AssertionError(f"{packs} readback packs for {frames} frames")
     periods = np.diff(times[2:]) * 1e3  # after the echo and the first frame
     line = {"frames": frames, "particles": counts, "grid": list(sim.grid.grid_shape),
-            "mesh": None if mesh is None else list(mesh.shape), "ext_io": ext_io,
+            "mesh": None if mesh is None else list(mesh.shape),
             "lane_chunks": sim._lane_chunks, "active_kernel": sim.active_kernel, "launches": launches,
             "readback_pack_launches": packs, "serve_s": serve_s,
             "frame_period_ms": {"median": float(np.median(periods)),
                                 "p90": float(np.percentile(periods, 90)),
                                 "all": [round(float(v), 3) for v in periods]},
             "profiled": profile, "device": busy}
-    label = "mesh slice" if mesh is not None else "slice" if ext_io == "off" else "ext slice"
+    label = "mesh slice" if mesh is not None else "slice"
     print(f"{label}: " + json.dumps(line), flush=True)
     return line
 
@@ -1104,7 +1101,7 @@ def phase_compact_slice(device, compact_frames: int, bucket_frames: int):
     if thread.is_alive():
         raise AssertionError("the engine did not stop after the editor closed")
     # the switched scene's step: the live-tile one where the reload gave it
-    # lane chunks (PS_EXT_IO is unset here)
+    # lane chunks
     step = "step_compact" if sim._lane_chunks > 1 else "step"
     launches = {k: v for k, v in {**counters[0], **counters[1]}.items()
                 if k in ("allpairs", step, "dest", "place")}
@@ -1544,7 +1541,7 @@ def compare_readback(got_bytes: bytes, want_bytes: bytes, held, copy) -> None:
 def numpy_pack(state) -> np.ndarray:
     """The live particles of a (BY, BX, CAP) grid on the host in wire order
     (buckets row-major, slots ascending), by numpy alone: the reckoning the
-    device pack (``ops/readback.py:dense_readback``) is held against."""
+    device pack (``ops/readback.py:pack_records``) is held against."""
     from particle_simulator_tpu_torch.engine.state import state_to_numpy
 
     parts = state_to_numpy(state)
@@ -1578,11 +1575,10 @@ def readback_check(sim) -> dict:
 def phase_ext_frame(device, scene, frames: int, timed: int):
     """Phase 13: the ext frame in both modes against the classic frame on
     the 1M user scene, bit for bit on every slot; frame times; then the
-    readback check through a Simulator serving the scene with
-    PS_EXT_IO=compact."""
+    readback check through a Simulator serving the scene, which picks the
+    live-tile frame."""
     import torch
 
-    from particle_simulator_tpu_torch.bench import ext_io_env
     from particle_simulator_tpu_torch.engine.simulator import Simulator
     from particle_simulator_tpu_torch.ops.bucket_cuda import run_frame_bucket_cuda
     from particle_simulator_tpu_torch.physics import bucket
@@ -1624,8 +1620,7 @@ def phase_ext_frame(device, scene, frames: int, timed: int):
         tiles.append((int(aux.params[-1]), live_tile_share(aux)))
     host = {name: enqueue_ms(lambda name=name: advance(name)) for name in runners}
     busy = {name: device_busy(lambda name=name: advance(name, 2))[1] for name in runners}
-    with ext_io_env("compact"):
-        readback = readback_check(sim)
+    readback = readback_check(sim)
     if readback["active_kernel"] != "bucket-compact-cuda":
         raise AssertionError(f"the readback check ran through {readback['active_kernel']}")
     line = {"scene": "user", "grid": list(sim.grid.grid_shape), "lane_chunks": chunks,
@@ -1779,11 +1774,11 @@ class KernelHold:
     """Holds every kernel the scripts' path runs against its plain version,
     bit for bit, on the states that path itself hands over (the drivers'
     ``inspect`` hook): a flat state holds the all-pairs step, a (BY, BX, CAP)
-    grid the classic step, the dest and the place, and, with ``PS_EXT_IO``
-    unset, the live-tile step where a ``Simulator`` would run it on a scene
-    loaded as that grid (more than one lane chunk); the line names the
-    step's ``LAUNCHES`` key as ``step_unset``. The comparison's own launches
-    are taken out of the counts again. ``held`` lists what was
+    grid the classic step, the dest and the place, and the live-tile step
+    where a ``Simulator`` would run it on a scene loaded as that grid (more
+    than one lane chunk); the line names the grid's lane chunks and the
+    served step's ``LAUNCHES`` key as ``served_step``. The comparison's own
+    launches are taken out of the counts again. ``held`` lists what was
     compared; ``err`` is the largest live-velocity difference per kernel
     (0.0, or the comparison raised)."""
 
@@ -1820,19 +1815,19 @@ class KernelHold:
             own = torch.arange(dest_ref.numel(), dtype=dest_ref.dtype,
                                device=dest_ref.device).reshape(dest_ref.shape)
             line["moved_by_dest"] = int(((dest_ref >= 0) & (dest_ref != own)).sum())
-            if "PS_EXT_IO" not in os.environ:
-                chunks = self.hold_ext(label, state, pv, "compact")
-                line["step_unset"] = "step_compact" if chunks > 1 else "step"
+            chunks = self.hold_live_tiles(label, state, pv)
+            line["lane_chunks"] = chunks
+            line["served_step"] = "step_compact" if chunks > 1 else "step"
         for counter, was in zip(counters, before):
             counter.update(was)
         self.held.append(line)
 
-    def hold_ext(self, label: str, state, pv, ext: str) -> int:
-        """The ``ext`` (``compact`` or ``nocompact``) ext-layout step against
-        its plain version on the lane chunks the Simulator's load rule picks
-        for the grid ``state`` (``_lane_chunks_for``) and 8-row tiles (the
-        default launch width's); returns the chunk count (1: nothing held,
-        since the ext frame then does not run)."""
+    def hold_live_tiles(self, label: str, state, pv) -> int:
+        """The live-tile step against its plain version on the lane chunks
+        the Simulator's load rule picks for the grid ``state``
+        (``_lane_chunks_for``) and 8-row tiles (the default launch width's);
+        returns the chunk count (1: nothing held, since the live-tile frame
+        then does not run)."""
         from particle_simulator_tpu_torch.engine.simulator import _lane_chunks_for
         from particle_simulator_tpu_torch.ops import bucket_cuda as bc
         from particle_simulator_tpu_torch.physics import bucket
@@ -1841,14 +1836,13 @@ class KernelHold:
         chunks = _lane_chunks_for((state.ty >= 0).sum(-1).cpu().numpy(), grid)
         if chunks == 1:
             return 1
-        name, compact = BENCH_EXT[ext], ext == "compact"
         launches = dict(bc.LAUNCHES)
         aux = bucket.ext_step_aux(state, pv, chunks, 8)
-        err = same_state(bc.bucket_step_ext_cuda(bc.ext_pair(state), aux, compact).cur,
-                         bucket.bucket_step_ext(state, aux, compact),
-                         f"{label}: the {ext} ext step against its plain version")
+        err = same_state(bc.bucket_step_ext_cuda(bc.ext_pair(state), aux, True).cur,
+                         bucket.bucket_step_ext(state, aux, True),
+                         f"{label}: the live-tile step against its plain version")
         bc.LAUNCHES.update(launches)
-        self.err[name] = max(self.err.get(name, 0.0), err)
+        self.err["step_compact"] = max(self.err.get("step_compact", 0.0), err)
         return chunks
 
 
@@ -1857,8 +1851,8 @@ def phase_configs(device: str, frames: int, steps: int, hold: KernelHold):
     ``bench_config``: the Simulator's own dispatch, ``frames`` timed frames
     of ``steps`` steps after one warm-up frame, ``Simulator.sync()`` as the
     barrier; the kernels held on each config's state as loaded and after
-    its frames. Config 3's step is the one the unset ``PS_EXT_IO`` gives its
-    scene as loaded (the hold's ``step_unset``)."""
+    its frames. Config 3's step is the one its scene picks as loaded (the
+    hold's ``served_step``)."""
     bench = script_module("torch_bench_configs")
     want = {1: ("allpairs", "allpairs"), 2: ("allpairs", "allpairs"), 3: ("bucket", "step")}
     records, total = {}, {}
@@ -1867,7 +1861,7 @@ def phase_configs(device: str, frames: int, steps: int, hold: KernelHold):
         with counted_launches() as launches:
             rec = bench.bench_config(num, frames, steps, torch_device=device, inspect=hold)
         if num == 3:
-            kernel = hold.held[first].get("step_unset", "step")
+            kernel = hold.held[first]["served_step"]
             runner = STEP_RUNNERS[kernel]
         if rec["kernel"] != f"{runner}-cuda" or rec["device"] != "cuda":
             raise AssertionError(f"config {num} ran through {rec['kernel']} on {rec['device']}")
@@ -1892,8 +1886,7 @@ def phase_sweep(device: str, hold: KernelHold):
     script's own step budgets (they fit: ~33 s on the H100); all six
     order-parameter checks must hold, and the kernels are held on each
     phase's state as loaded and after its last frame. Each phase runs the
-    step that the unset ``PS_EXT_IO`` gives its scene as loaded (the hold's
-    ``step_unset``)."""
+    step that its scene picks as loaded (the hold's ``served_step``)."""
     sweep = script_module("torch_phase_sweep_chip")
     first = len(hold.held)
     t0 = time.perf_counter()
@@ -1909,7 +1902,7 @@ def phase_sweep(device: str, hold: KernelHold):
     print("sweep: " + json.dumps(line), flush=True)
     if not verdict["ok"]:
         raise AssertionError(f"the phase sweep failed its checks: {verdict['checks']}")
-    loaded = {h["at"]: h.get("step_unset", "step") for h in hold.held[first:]}
+    loaded = {h["at"]: h["served_step"] for h in hold.held[first:]}
     want = dict.fromkeys(STEP_RUNNERS, 0)
     for rec in records:
         kernel = loaded[f"{rec['phase']} as loaded"]
@@ -2695,7 +2688,7 @@ def hold_grid(label: str, sim) -> dict:
     """``KernelHold`` on a daemon's own one-device bucket grid (its
     ``--inspect`` hook; phase 21): the step, the dest and the place against
     their plain versions, bit for bit, on the served state, and the
-    live-tile step where the unset ``PS_EXT_IO`` runs it. The line also
+    live-tile step where the scene runs it. The line also
     carries the daemon's launches so far (the hold's own are taken out
     again), whether every live velocity is finite and the largest
     live-velocity difference of each kernel of the state's path."""
@@ -2711,7 +2704,7 @@ def hold_grid(label: str, sim) -> dict:
     alive = sim.state.ty >= 0
     finite = bool(torch.isfinite(sim.state.vx[alive]).all()
                   and torch.isfinite(sim.state.vy[alive]).all())
-    path = (hold.held[0].get("step_unset", "step"), *CONFIG5_PATH[1:])
+    path = (hold.held[0]["served_step"], *CONFIG5_PATH[1:])
     return {**hold.held[0], "launches": launches, "finite": finite,
             "max_abs_err": {k: hold.err.get(k, 0.0) for k in path}}
 
@@ -2762,7 +2755,7 @@ def phase_config5(workdir: str, seconds: float = CONFIG5_SECONDS, n_side: int = 
     """Phase 21: ``scripts/torch_interactive_1m_chip.py``'s ``record`` for
     ``seconds`` (on the card unless ``torch_device`` says otherwise, as the
     CPU tests do at a small ``n_side``), the daemon holding rows 1-3 on its
-    grid (or row 5 where the unset ``PS_EXT_IO`` runs it) through
+    grid (or row 5 where the scene runs it) through
     ``--inspect chip_smoke:hold_grid`` and teeing its frames
     into a FIFO read by ``FrameCheck``; both children's module reports
     checked."""
@@ -2794,8 +2787,8 @@ def phase_config5(workdir: str, seconds: float = CONFIG5_SECONDS, n_side: int = 
     found = re.findall(r"^engine: disconnected after (\d+) frames", daemon_log, re.M)
     shipped = int(found[-1]) if found else 0
     held = inspect_lines([(0, "", daemon_log)], "config 5")
-    # the daemon's PS_EXT_IO is unset: its step follows the scene as loaded
-    step = held[0].get("step_unset", "step") if held else "step"
+    # the daemon's step follows the scene as loaded
+    step = held[0]["served_step"] if held else "step"
     verdict = config5_checks(rec, check, held, shipped, n_side * n_side,
                              (step, *CONFIG5_PATH[1:]) if torch_device == "cuda" else ())
     print("config 5 held: " + json.dumps(
@@ -2827,29 +2820,22 @@ BENCH_RUNS = {
     "dense": ("dense", CONFIG5_PATH, ()),
     "per-frame": ("per-frame", CONFIG5_PATH, ("--per-frame",)),
     "sharded": ("sharded", HALO_KERNELS, ("--sharded",)),
-    "user off": ("user", CONFIG5_PATH, (*BENCH_USER, "--ext-io", "off")),
-    "user compact": ("user", ("step_compact", "dest", "place"),
-                     (*BENCH_USER, "--ext-io", "compact")),
-    "user nocompact": ("user", ("step_ext", "dest", "place"),
-                       (*BENCH_USER, "--ext-io", "nocompact")),
+    # the 1M user scene has 8 lane chunks: the Simulator steps its live tiles
+    "user": ("user", ("step_compact", "dest", "place"), BENCH_USER),
 }
-BENCH_EXT = {"compact": "step_compact", "nocompact": "step_ext"}
 
 
 class BenchHold(KernelHold):
     """``KernelHold`` on the bench's states (phase 22, through the bench's
-    ``inspect`` hook). A grid holds the classic step, the dest and the
-    place, and with ``ext`` (``compact`` or ``nocompact``) that ext-layout
-    step too, on the lane chunks the Simulator's load rule picks for the
-    state (``_lane_chunks_for``; none when it picks one, since the ext frame
-    then does not run) and 8-row tiles (the default launch width's). A tuple
-    of blocks is the sharded frame's: ``hold_halo`` on ``mesh`` with the
-    global grid ``cfg``."""
+    ``inspect`` hook): a grid holds the classic step, the dest, the place
+    and, where the Simulator's load rule gives it more than one lane chunk,
+    the live-tile step. A tuple of blocks is the sharded frame's:
+    ``hold_halo`` on ``mesh`` with the global grid ``cfg``."""
 
-    def __init__(self, ext: str | None = None, mesh=None, cfg=None):
+    def __init__(self, mesh=None, cfg=None):
         super().__init__()
-        self.ext, self.mesh, self.cfg = ext, mesh, cfg
-        self.err.update(dict.fromkeys((*BENCH_EXT.values(), *HALO_KERNELS), 0.0))
+        self.mesh, self.cfg = mesh, cfg
+        self.err.update(dict.fromkeys(("step_compact", *HALO_KERNELS), 0.0))
 
     def __call__(self, label: str, state, pv) -> None:
         if not hasattr(state, "_fields"):  # the mesh's blocks
@@ -2859,8 +2845,6 @@ class BenchHold(KernelHold):
             self.held.append(line)
             return
         super().__call__(label, state, pv)
-        if self.ext is not None:
-            self.held[-1]["lane_chunks"] = self.hold_ext(label, state, pv, self.ext)
 
 
 def bench_particles(args) -> int:
@@ -2910,9 +2894,8 @@ def bench_row(table: dict, label: str, device: str, size, devices, hold_cls, **h
     bench in this process, ``size`` appended to its arguments, ``--sharded``
     over ``devices``, with a ``hold_cls`` hold (``BenchHold`` or a subclass,
     given ``hold_kw``) as the bench's ``inspect`` hook. The line must pass
-    ``bench_checks``, the hold must have held two states, and PS_EXT_IO must
-    be as it was. Returns the record, the run's launches, the hold and the
-    argument list."""
+    ``bench_checks`` and the hold must have held two states. Returns the
+    record, the run's launches, the hold and the argument list."""
     import torch
 
     from particle_simulator_tpu_torch import bench
@@ -2921,14 +2904,10 @@ def bench_row(table: dict, label: str, device: str, size, devices, hold_cls, **h
     argv = [*args, "--torch-device", device, *size]
     parsed = bench.parser().parse_args(argv)
     mesh = bench.bench_mesh(torch.device(device), devices) if parsed.sharded else None
-    hold = hold_cls(ext=parsed.ext_io if parsed.ext_io in BENCH_EXT else None, mesh=mesh,
-                    cfg=bench.dense_grid_config(parsed.particles, parsed.fill), **hold_kw)
-    ext_io = os.environ.get("PS_EXT_IO")
+    hold = hold_cls(mesh=mesh, cfg=bench.dense_grid_config(parsed.particles, parsed.fill),
+                    **hold_kw)
     with counted_launches() as launches:
         rec = bench.run(argv, devices=devices, inspect=hold)
-    if os.environ.get("PS_EXT_IO") != ext_io:
-        raise AssertionError(f"bench {label} left PS_EXT_IO at "
-                             f"{os.environ.get('PS_EXT_IO')!r}, not {ext_io!r}")
     bench_checks(label, mode, rec, launches, path if device == "cuda" else (),
                  bench_particles(parsed), device, mesh)
     if len(hold.held) != 2:
@@ -2944,9 +2923,9 @@ def phase_bench(device: str = "cuda", runs=tuple(BENCH_RUNS), size=(), devices=N
     line must pass ``bench_checks`` (the bench itself raises on non-finite
     velocities); every kernel the run launched is held bit for bit against
     its plain version on the bench's states as loaded and after the last
-    frame (``BenchHold``, whose launches are not counted); PS_EXT_IO is as
-    it was after each run (``bench_row``). Returns the records, the launches
-    summed over the runs and each kernel's largest error."""
+    frame (``BenchHold``, whose launches are not counted; ``bench_row``).
+    Returns the records, the launches summed over the runs and each
+    kernel's largest error."""
     records, total = {}, {}
     err = dict.fromkeys(BenchHold().err, 0.0)
     for label in runs:
@@ -3011,12 +2990,11 @@ SCALE_RUNS = {
     "dense 4M": ("per-frame", CONFIG5_PATH, SCALE_4M),
     "dense 16M": ("per-frame", CONFIG5_PATH, SCALE_16M),
     "sharded 16M": ("sharded per-frame", HALO_KERNELS, (*SCALE_16M, "--sharded")),
-    "user 4M off": ("user", CONFIG5_PATH, (*SCALE_USER, "--ext-io", "off")),
-    "user 4M compact": ("user", ("step_compact", "dest", "place"),
-                        (*SCALE_USER, "--ext-io", "compact")),
+    # 8 lane chunks, as at 1M: the Simulator steps the live tiles
+    "user 4M": ("user", ("step_compact", "dest", "place"), SCALE_USER),
 }
 # the row after which a Simulator serving the same scene holds its readback
-SCALE_READBACK = "user 4M compact"
+SCALE_READBACK = "user 4M"
 SCALE_REPS = 10
 
 
@@ -3057,15 +3035,15 @@ def rebucket_bounds(state, dest, out_slots: int, extra_bytes: int = 0) -> dict:
             "place": bound(4 * slots + 20 * kept + 20 * out_slots)}
 
 
-def scale_times(state, pv, ext, timer, mesh=None, cfg=None) -> dict:
+def scale_times(state, pv, timer, mesh=None, cfg=None) -> dict:
     """Each kernel of a bench state's path timed by ``timer`` (``cuda_ms`` on
     the card, ``SCALE_REPS`` launches), beside its bound and the share of
     the bound it reaches. A grid: the classic step (bound by every slot's
     bytes and the pairs on a grid of one lane chunk, by the live slots' on
     a sparse one:
     ``ext_bound``), the dest, the place with ``torch.index_copy``'s time
-    beside it (their bounds by ``rebucket_bounds``), and with ``ext`` that
-    ext-layout step on the lane chunks the Simulator's load rule picks. The
+    beside it (their bounds by ``rebucket_bounds``), and the live-tile step
+    where the Simulator's load rule gives the grid more than one lane chunk. The
     mesh's blocks (a tuple, ``mesh`` and the global grid ``cfg`` given):
     the halo step, dest and place on the first block, its ring filled by
     the exchange. The caller takes the timed launches and ring traffic out
@@ -3115,11 +3093,11 @@ def scale_times(state, pv, ext, timer, mesh=None, cfg=None) -> dict:
         "place": entry(lambda: bc.bucket_place_cuda(state, dest), rb["place"],
                        library_ms=library_ms),
     }
-    if ext is not None and chunks > 1:
+    if chunks > 1:
         aux = bucket.ext_step_aux(state, pv, chunks, 8)
         pair = bc.ext_pair(state)
-        kernels[BENCH_EXT[ext]] = entry(
-            lambda: bc.bucket_step_ext_cuda(pair, aux, ext == "compact"), ext_bound(state, sass))
+        kernels["step_compact"] = entry(
+            lambda: bc.bucket_step_ext_cuda(pair, aux, True), ext_bound(state, sass))
     return {"lane_chunks": chunks, "kernels": kernels}
 
 
@@ -3131,8 +3109,8 @@ class ScaleHold(BenchHold):
     and ends) and the clock of each hold. Its launches and ring traffic are
     not counted."""
 
-    def __init__(self, ext=None, mesh=None, cfg=None, timer=not_timed):
-        super().__init__(ext, mesh, cfg)
+    def __init__(self, mesh=None, cfg=None, timer=not_timed):
+        super().__init__(mesh, cfg)
         self.timer = timer
         self.peaks = {"run": None, "holds": None}  # bytes; None without a card
         self.clock = []  # (entered, left) of each hold, time.perf_counter()
@@ -3153,7 +3131,7 @@ class ScaleHold(BenchHold):
         launches, exchange = dict(bc.LAUNCHES), dict(domain.EXCHANGE)
         super().__call__(label, state, pv)
         if self.times is None:
-            self.times = scale_times(state, pv, self.ext, self.timer, self.mesh, self.cfg)
+            self.times = scale_times(state, pv, self.timer, self.mesh, self.cfg)
         bc.LAUNCHES.update(launches)
         domain.EXCHANGE.update(exchange)
         self.peak("holds")
@@ -3162,8 +3140,8 @@ class ScaleHold(BenchHold):
 
 def scale_readback(args) -> dict:
     """``readback_check`` on a Simulator serving the bench's user scene of
-    the parsed ``args`` under their ``--ext-io``: the ticket's wire bytes
-    against the device pack of a copy and against its ``numpy_pack``."""
+    the parsed ``args``: the ticket's wire bytes against the device pack of
+    a copy and against its ``numpy_pack``."""
     from particle_simulator_tpu_torch import bench
     from particle_simulator_tpu_torch.engine.simulator import Simulator
 
@@ -3171,16 +3149,14 @@ def scale_readback(args) -> dict:
     frame = user_scene(side)
     frame.metadata.steps_per_frame = args.steps
     t0 = time.perf_counter()
-    with bench.ext_io_env(args.ext_io):
-        sim = Simulator(device=bench.torch_device(args.torch_device))
-        sim.load_frame(frame)
-        load_s = time.perf_counter() - t0
-        line = readback_check(sim)
+    sim = Simulator(device=bench.torch_device(args.torch_device))
+    sim.load_frame(frame)
+    load_s = time.perf_counter() - t0
+    line = readback_check(sim)
     if line["particles"] != side * side:
         raise AssertionError(f"readback: {line['particles']} particles, not {side * side}")
-    return {**line, "grid": list(sim.grid.grid_shape), "readback_k": sim._readback_k,
-            "readback_ncap": sim._readback_ncap, "load_s": load_s,
-            "seconds": time.perf_counter() - t0}
+    return {**line, "grid": list(sim.grid.grid_shape), "readback_ncap": sim._readback_ncap,
+            "load_s": load_s, "seconds": time.perf_counter() - t0}
 
 
 def phase_scale(device: str = "cuda", runs=tuple(SCALE_RUNS), size=(), devices=None) -> dict:
@@ -3188,7 +3164,7 @@ def phase_scale(device: str = "cuda", runs=tuple(SCALE_RUNS), size=(), devices=N
     runs (``SCALE_RUNS``), each row as phase 22 runs its rows (``bench_row``:
     bench.py's keys, a step launch a step per block and no kernel of another
     path, every kernel held bit for bit on the states as loaded and after
-    the last frame, PS_EXT_IO restored) with a ``ScaleHold``: each kernel
+    the last frame) with a ``ScaleHold``: each kernel
     timed at the row's state with its bound, the device-memory peaks of the
     run and of the holds, the seconds of the load, the frames and the holds.
     After ``SCALE_READBACK``, ``scale_readback`` on the same scene. The
@@ -3342,8 +3318,7 @@ def main() -> int:
     phase_sharded_frame(device, dense_cfg, frames=3, steps=100, timed=5)
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as workdir:
         msl = phase_slice(device, "1024x1024", 16, workdir, mesh=one_card_mesh(device))
-        # the same serve on one device (8 frames: phase 14 serves it again
-        # with 16), then both profiled
+        # the same serve on one device, then both profiled
         phase_slice(device, "1024x1024", 8, workdir)
         for mesh in (None, one_card_mesh(device)):
             phase_slice(device, "1024x1024", 8, workdir, mesh=mesh, profile=True)
@@ -3351,11 +3326,6 @@ def main() -> int:
     scene = user_scene()
     ext = phase_ext_kernels(device, scene, GridConfig(4, 4, 16), reps=20, sass=sass)
     phase_ext_frame(device, scene, frames=3, timed=5)
-    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as workdir:
-        esl = {mode: phase_slice(device, "1024x1024", 16, workdir, ext_io=mode)
-               for mode in ("compact", "nocompact", "off")}
-        for mode in esl:
-            phase_slice(device, "1024x1024", 8, workdir, profile=True, ext_io=mode)
     # 20. two processes sharing the card: the (2, 2) global mesh, two shards each
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as workdir:
         mp = phase_multiprocess(dense_cfg, workdir, world=2, n_shards=4, own_cards=False,
@@ -3456,11 +3426,10 @@ def main() -> int:
     eerr = max(line["max_abs_err_v"] for line in ext.values())
     kernels += [
         kernel_entry("bucket_step_ext", "bucket_step.cu", EXT_KERNEL,
-                     esl["nocompact"]["launches"]["step_ext"],
-                     max(eerr, berr["step_ext"], serr["step_ext"]), ems["ext"], ems["ext_plain"],
+                     sl["launches"]["step_ext"], eerr, ems["ext"], ems["ext_plain"],
                      ebnd, None, launches_bench=bl["step_ext"], launches_scale=scl["step_ext"]),
         kernel_entry("bucket_step_compact", "bucket_step.cu", COMPACT_KERNEL,
-                     esl["compact"]["launches"]["step_compact"],
+                     sl["launches"]["step_compact"],
                      max(eerr, hold.err.get("step_compact", 0.0),
                          c5err.get("step_compact", 0.0), berr["step_compact"],
                          serr["step_compact"]), ems["compact"], ems["compact_plain"], ebnd,
@@ -3470,7 +3439,7 @@ def main() -> int:
     ]
     kernels += [
         kernel_entry("readback_pack", "readback_pack.cu", READBACK_KERNEL,
-                     esl["compact"]["readback_pack_launches"], 0.0, rb["ms"], rb["plain_ms"],
+                     sl["readback_pack_launches"], 0.0, rb["ms"], rb["plain_ms"],
                      {k: rb[k] for k in ("bound_ms", "bound_by")}, None),
     ]
     print("library calls: bucket_step(_halo, _ext, _compact), bucket_dest(_halo), "

@@ -15,12 +15,15 @@ Modes:
 - ``--sharded``: the sharded frame (``parallel/domain.py``) over a mesh of
   every visible card, one shard a card (a (1, 1) mesh on one card);
 - ``--user-scene``: the editor-drawn configuration through the engine's own
-  ``Simulator`` (its grid choice, per-frame dispatch, readback), with
-  ``--lane-chunks`` and ``--ext-io`` (``PS_EXT_IO``, set for the run and
-  restored after it).
+  ``Simulator``, exactly as the daemon runs it (its grid choice, the runner
+  its scene picks, per-frame dispatch, readback).
 
 Prints ONE JSON line, the last on stdout; on the card the ``nvidia-smi``
-name and power limit come first. ``vs_baseline`` is measured against the
+name and power limit come first. The user scene's line keeps the keys of
+the repository's ``bench.py``: ``ext_io`` is always ``"auto"``, the JAX
+engine's name for the rule the port follows (live tiles where the scene
+has more than one lane chunk), and ``readback_k`` is the grid's ``cap``,
+the slot prefix the record pack reads. ``vs_baseline`` is measured against the
 north star: 1M particles x 60 sim-steps/s = 6.0e7 particle-steps/s.
 
 Usage (a machine with an NVIDIA H100; without a card it raises):
@@ -33,9 +36,7 @@ On the CPU (the plain PyTorch versions, slow: shrink it):
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
-import os
 import sys
 import time
 
@@ -134,22 +135,6 @@ def synchronize(blocks) -> None:
     for d in {b.x.device for b in blocks}:
         if d.type == "cuda":
             torch.cuda.synchronize(d)
-
-
-@contextlib.contextmanager
-def ext_io_env(mode: str):
-    """``PS_EXT_IO`` = ``mode`` while the context is open (``auto`` leaves it
-    as it is), restored after."""
-    old = os.environ.get("PS_EXT_IO")
-    if mode != "auto":
-        os.environ["PS_EXT_IO"] = mode
-    try:
-        yield
-    finally:
-        if old is None:
-            os.environ.pop("PS_EXT_IO", None)
-        else:
-            os.environ["PS_EXT_IO"] = old
 
 
 def bench_dense(args, devices=None, inspect=None) -> dict:
@@ -259,31 +244,28 @@ def bench_user_scene(args, devices=None, inspect=None) -> dict:
     frame = _scene(side, side, distance_factor=1.1, speed=1.0, box_fill=0.5)
     frame.metadata.steps_per_frame = args.steps
     mesh = bench_mesh(dev, devices) if args.sharded else None
-    with ext_io_env(args.ext_io):
-        sim = Simulator(device=dev, mesh=mesh)
-        sim.load_frame(frame)
-        if args.lane_chunks:
-            sim._lane_chunks = args.lane_chunks
-        n = int(np.count_nonzero(frame.particles["ty"] >= 0))
-        if inspect is not None:
-            inspect("user scene as loaded", sim.state, sim._pvec)
+    sim = Simulator(device=dev, mesh=mesh)
+    sim.load_frame(frame)
+    n = int(np.count_nonzero(frame.particles["ty"] >= 0))
+    if inspect is not None:
+        inspect("user scene as loaded", sim.state, sim._pvec)
 
+    sim.frame_async()
+    for _ in range(3):
+        sim.read_frame()
+
+    sim.sync()
+    t0 = time.perf_counter()
+    for _ in range(args.frames):
         sim.frame_async()
-        for _ in range(3):
-            sim.read_frame()
+    sim.sync()
+    elapsed = time.perf_counter() - t0
+    if inspect is not None:
+        inspect(f"user scene after {args.frames + 1} frames", sim.state, sim._pvec)
 
-        sim.sync()
-        t0 = time.perf_counter()
-        for _ in range(args.frames):
-            sim.frame_async()
-        sim.sync()
-        elapsed = time.perf_counter() - t0
-        if inspect is not None:
-            inspect(f"user scene after {args.frames + 1} frames", sim.state, sim._pvec)
-
-        t0 = time.perf_counter()
-        out = sim.read_frame()
-        readback_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = sim.read_frame()
+    readback_s = time.perf_counter() - t0
     if not (np.isfinite(out.particles["vx"]).all() and np.isfinite(out.particles["vy"]).all()):
         raise AssertionError("benchmark scene diverged")
 
@@ -301,13 +283,13 @@ def bench_user_scene(args, devices=None, inspect=None) -> dict:
         "elapsed_s": elapsed,
         "sim_steps_per_sec": args.steps * args.frames / elapsed,
         "readback_ms": readback_s * 1e3,
-        "readback_k": sim._readback_k,
+        "readback_k": g.cap,
         "readback_ncap": sim._readback_ncap,
         "grid": [g.by, g.bx, g.cap],
-        # lane chunks picked from the scene's occupancy at load (or
-        # --lane-chunks); the ext-layout frame runs only with more than one
+        # lane chunks picked from the scene's occupancy at load; the
+        # live-tile frame runs only with more than one
         "lane_chunks": sim._lane_chunks,
-        "ext_io": args.ext_io,
+        "ext_io": "auto",
         "device": dev.type,
     }
     if mesh is not None:
@@ -331,20 +313,6 @@ def parser() -> argparse.ArgumentParser:
                     help="bench the editor-drawn configuration instead of the dense "
                          "grid: a hex lattice at 1.1 r0 spacing filling half the box, "
                          "grid chosen by the engine's own _grid_for")
-    ap.add_argument("--warm-siblings", default=True, action=argparse.BooleanOptionalAction,
-                    help="accepted so that bench.py's argument lists carry over; does "
-                         "nothing: it fills the TPU compile cache, and the kernels here "
-                         "are built once by nvcc, whatever the grid")
-    ap.add_argument("--lane-chunks", type=int, default=0,
-                    help="[--user-scene only] override the occupancy-chosen lane-chunk "
-                         "count (0 = auto)")
-    ap.add_argument("--ext-io", choices=("auto", "off", "compact", "nocompact"),
-                    default="auto",
-                    help="[--user-scene only] sets PS_EXT_IO for the run: off = the "
-                         "classic step, compact = the ext-layout step on the live tiles, "
-                         "nocompact = on every tile; auto leaves PS_EXT_IO as it is, and "
-                         "unset the Simulator steps the live tiles of a scene with more than "
-                         "one lane chunk (the 1M user scene has 8), else the classic step")
     ap.add_argument("--per-frame", action="store_true",
                     help="barrier every frame (torch.cuda.synchronize) and report the "
                          "per-frame time distribution")

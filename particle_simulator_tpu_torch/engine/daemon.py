@@ -36,12 +36,11 @@ is full); on ``ship-rb`` ``sim.read_frame`` with ``readback.wait`` and
 send). ``sim.load_frame`` (``load.grid_pick``, ``load.bucketize``,
 ``load.upload``) and ``sim.update_metadata`` mark scene loads and live
 edits; the counters ``poll.superseded``, ``readback.redo`` and
-``frame.ext_default`` count the editor frames a poll dropped for a newer
-one, the widened readbacks and the frames an unset ``PS_EXT_IO`` sent to
-the live-tile step; ``frame.allpairs`` and ``allpairs.swept_pairs`` the
-frames sent to the all-pairs step and the pair evaluations they sweep;
-``readback.records`` the bucket-grid frames read back through the card's
-record pack.
+``frame.live_tiles`` count the editor frames a poll dropped for a newer
+one, the widened readbacks and the frames sent to the live-tile step;
+``frame.allpairs`` and ``allpairs.swept_pairs`` the frames sent to the
+all-pairs step and the pair evaluations they sweep; ``readback.records``
+the bucket-grid frames read back through the record pack.
 
 Run:  python -m particle_simulator_tpu_torch.engine.daemon [--addr HOST:PORT]
 """

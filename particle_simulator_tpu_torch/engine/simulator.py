@@ -13,27 +13,25 @@ Counterpart of ``particle_simulator_tpu/engine/simulator.py``:
   back and lays them out again through ``load_frame``;
 - ``frame_async`` enqueues one frame of kernel launches on the current CUDA
   stream and returns (CUDA's own asynchrony gives the compute/readback
-  overlap the daemon relies on); CPU tensors run the plain versions. A
-  MatrixBuckets scene whose occupancy leaves lane chunks to skip
-  (``_lane_chunks_for``, chosen at load) runs the ext-layout frame when
-  ``PS_EXT_IO`` asks for it (``_ext_io_mode``), and, unlike the JAX
-  engine, whose default is ``off``, when it is unset: it then steps the
-  live tiles only, since on the H100 that frame takes less time than the
-  classic one at every live-tile share that leaves lane chunks (at most
-  75%). The counter ``frame.ext_default`` counts the frames the unset
-  default sent there. A scene that fills its box after load keeps its
+  overlap the daemon relies on); CPU tensors run the plain versions. The
+  scene picks the runner: a MatrixBuckets scene whose occupancy leaves
+  lane chunks to skip (``_lane_chunks_for``, chosen at load) steps its
+  live tiles only (the ext-layout frame), since on the H100 that frame
+  takes less time than the classic one at every live-tile share that
+  leaves lane chunks (at most 75%); every other scene runs the classic
+  frame. That is the rule of the JAX engine's ``PS_EXT_IO=auto``; the port
+  reads no such variable. A scene that fills its box after load keeps its
   load-time choice, as it keeps its lane chunks;
-- ``start_readback`` packs the live particles of a bucket grid on the
-  device (``ops/readback.py``), or takes a CompactArray state whole, and
-  starts the copy into pinned host memory; ``read_frame`` waits on the
-  ticket's CUDA event, widening the sticky pack sizes and retrying when the
-  scene outgrew them. A grid on the card is packed into wire records by one
-  kernel (``pack_records``) and copied once, on a copy stream that waits for
-  the pack, so the next frame's kernels run while the copy engine works;
-  its frame's particles are a view of that pinned buffer, which goes back
-  to torch's caching host allocator when the frame is dropped. A grid on the
-  CPU takes the fields' pack (``dense_readback``) and interleaves them on
-  the host.
+- ``start_readback`` packs the live particles of a bucket grid into wire
+  records (``ops/readback.py:pack_records``), or takes a CompactArray
+  state whole, and starts the copy into pinned host memory; ``read_frame``
+  waits on the ticket's CUDA event, widening the sticky pack length and
+  packing again when the scene outgrew it. On the card the pack is one
+  kernel, copied once on a copy stream that waits for the pack, so the
+  next frame's kernels run while the copy engine works; its frame's
+  particles are a view of that pinned buffer, which goes back to torch's
+  caching host allocator when the frame is dropped. On the CPU the pack is
+  its plain version (``records_plain``), with the same bytes.
 
 Frame ids: each ``load_frame`` and each ``frame_async`` takes the next
 number (``frame_id``), and a readback ticket carries the id of the state it
@@ -44,9 +42,9 @@ is recorded unless recording is on) share it: ``sim.load_frame`` (with
 ``sim.read_frame`` (with ``readback.wait``, the wait for the copy, and
 ``readback.unpack``, the host work after it). The counter ``readback.redo``
 counts the readbacks widened and done again, ``readback.records`` the frames
-of a bucket grid read back through the record pack (the card's path; a
-redo counts once), ``frame.ext_default`` the
-frames an unset ``PS_EXT_IO`` sent to the live-tile step, ``frame.allpairs``
+of a bucket grid read back through the record pack (on the card or the
+CPU; a redo counts once), ``frame.live_tiles`` the frames sent to the
+live-tile step, ``frame.allpairs``
 the frames sent to the all-pairs step and ``allpairs.swept_pairs`` the pair
 evaluations those frames' launches sweep (every slot, tombstones included,
 squared, times the steps; beside the live pairs that a step's least time
@@ -82,7 +80,6 @@ like every frame, they are collectives.
 
 from __future__ import annotations
 
-import os
 import sys
 import time
 from typing import Optional
@@ -99,13 +96,7 @@ from particle_simulator_tpu_torch.engine.state import (
 from particle_simulator_tpu_torch.io.frame import PARTICLE_DTYPE, DataStructure, Device, Frame
 from particle_simulator_tpu_torch.ops.allpairs_cuda import run_frame_allpairs_cuda
 from particle_simulator_tpu_torch.ops.bucket_cuda import run_frame_bucket_cuda
-from particle_simulator_tpu_torch.ops.readback import (
-    dense_readback,
-    dense_to_particles,
-    pack_records,
-    pow2_at_least,
-    record_view,
-)
+from particle_simulator_tpu_torch.ops.readback import pack_records, pow2_at_least, record_view
 from particle_simulator_tpu_torch.parallel import multihost
 from particle_simulator_tpu_torch.parallel.domain import (
     DeviceMesh,
@@ -123,24 +114,19 @@ from particle_simulator_tpu_torch.utils import profiling
 
 class ReadbackTicket:
     """A started readback on its way to host memory until ``event``
-    completes (``event`` is None on the CPU). For a bucket grid on the
-    card, ``records`` = the host words of its record pack
+    completes (``event`` is None on the CPU). For a bucket grid,
+    ``records`` = the host words of its record pack
     (``ops/readback.py:pack_records``), ``ncap`` records and the header;
-    for one on the CPU, ``scalars`` = ``[max_occupancy, total]`` and
-    ``packed`` = the five packed fields, sized ``k``/``ncap``; for a
-    CompactArray state, ``packed`` is the whole state. ``state`` is kept
-    for the widen-and-retry path. ``frame`` is the id of the frame whose
-    state it reads (``Simulator.frame_id``). On a process other than the
-    frame owner of a multi-process mesh every field but ``frame`` is None."""
+    for a CompactArray state, ``records`` is None and ``state`` is the
+    whole state on the host. Otherwise ``state`` is kept for the
+    widen-and-retry path. ``frame`` is the id of the frame whose state it
+    reads (``Simulator.frame_id``). On a process other than the frame owner
+    of a multi-process mesh every field but ``frame`` is None."""
 
-    __slots__ = ("state", "scalars", "packed", "k", "ncap", "event", "frame", "records")
+    __slots__ = ("state", "ncap", "event", "frame", "records")
 
-    def __init__(self, state, scalars, packed, k, ncap, event=None, frame=None,
-                 records=None):
+    def __init__(self, state, ncap=None, event=None, frame=None, records=None):
         self.state = state
-        self.scalars = scalars
-        self.packed = packed
-        self.k = k
         self.ncap = ncap
         self.event = event
         self.frame = frame
@@ -202,24 +188,6 @@ def _grid_for(
     return cfg
 
 
-def _ext_io_mode() -> tuple[bool, bool] | None:
-    """(ext_io, compact_tiles) of the MatrixBuckets frame on the card, from
-    ``PS_EXT_IO``, read at every frame as the JAX engine reads it:
-    ``compact``, ``auto``, ``on`` or ``1`` run the ext-layout step on the
-    live tiles only, ``nocompact`` on every tile; ``off`` and anything else
-    the classic step. None when it is unset, where the JAX engine runs the
-    classic step and the port the ext-layout step on the live tiles."""
-    mode = os.environ.get("PS_EXT_IO")
-    if mode is None:
-        return None
-    mode = mode.lower()
-    if mode in ("compact", "auto", "on", "1"):
-        return True, True
-    if mode == "nocompact":
-        return True, False
-    return False, True
-
-
 def _lane_chunk_candidates(grid: GridConfig) -> list[int]:
     """The lane-chunk counts a grid can be split into, largest first: each
     of 8, 4, 2 that divides BX into chunks of at least 1024 slot lanes, a
@@ -232,7 +200,7 @@ def _lane_chunk_candidates(grid: GridConfig) -> list[int]:
 def _lane_chunks_for(occ: np.ndarray, grid: GridConfig) -> int:
     """The lane-chunk count of a scene from its (BY, BX) bucket occupancy:
     the largest candidate whose 8-row tiles are at most 75% live, else 1
-    (the JAX engine's ``_lane_chunks_for``). The ext-layout frame runs only
+    (the JAX engine's ``_lane_chunks_for``). The live-tile frame runs only
     on scenes that get more than 1."""
     for c in _lane_chunk_candidates(grid):
         by8 = (grid.by + 7) // 8
@@ -278,24 +246,19 @@ class Simulator:
         # the device the state lives on, and the Device the wire echoes
         self.run_device, self.active_device = self._target_device(Device.GPU)
         # the Device the scene's frames asked for (a GPU request on a CPU
-        # Simulator runs on the CPU but still takes the ext-layout frame)
+        # Simulator runs on the CPU but still takes the live-tile frame)
         self.requested_device = Device.GPU
-        # readback pack sizes (ops/readback.py): kcap = the occupied slot
-        # prefix the CPU's pack gathers from (sticky power of two; grows on
-        # overflow, halves after a long low streak; the card's record pack
-        # needs none); ncap = the pack length (sticky power of two >= the
-        # live count, seeded at scene load)
-        self._readback_k = 8
+        # the record pack's length (ops/readback.py): a sticky power of two
+        # >= the live count, seeded at scene load
         self._readback_ncap = 1
-        self._readback_low_streak = 0
         # the copy stream of each card's record-pack readbacks
         self._copy_streams: dict = {}
-        # lane chunks of the ext-layout frame, from the scene's occupancy at
-        # load (_lane_chunks_for); 1 = the classic step whatever PS_EXT_IO says
+        # lane chunks of the live-tile frame, from the scene's occupancy at
+        # load (_lane_chunks_for); 1 = the classic step
         self._lane_chunks = 1
         # the runner of the last frame_async: "bucket-<where>",
-        # "bucket-ext-<where>", "bucket-compact-<where>", "allpairs-<where>"
-        # or "sharded-<where>", where is "cuda" or "torch-cpu"
+        # "bucket-compact-<where>", "allpairs-<where>" or "sharded-<where>",
+        # where is "cuda" or "torch-cpu"
         self.active_kernel: str | None = None
         # the id of the frame the state holds: each load_frame and each
         # frame_async takes the next
@@ -374,14 +337,12 @@ class Simulator:
                         g = GridConfig(g.bx_log2 + 1, g.by_log2 + 1, g.cap, g.move_every)
             self.grid = g
             with profiling.annotate("load.bucketize"):
-                # per-bucket placed counts seed the readback sizes (bucketize
+                # per-bucket placed counts pick the lane chunks (bucketize
                 # fills slots ascending and drops past cap)
                 bxi = (live["x"] >> np.uint32(32 - g.bx_log2)).astype(np.int64)
                 byi = (live["y"] >> np.uint32(32 - g.by_log2)).astype(np.int64)
                 occ = np.minimum(np.bincount(bxi + byi * g.bx, minlength=g.buckets), g.cap)
-                self._readback_k = pow2_at_least(int(occ.max(initial=0)))
                 self._readback_ncap = pow2_at_least(len(live))
-                self._readback_low_streak = 0
                 self._lane_chunks = _lane_chunks_for(occ.reshape(g.by, g.bx), g)
                 layout = bucketize_numpy(live, g)
             desc = f"grid {g.bx}x{g.by}x{g.cap} lane_chunks {self._lane_chunks}"
@@ -437,15 +398,14 @@ class Simulator:
         """Enqueue one frame (steps_per_frame steps) and return. The
         wrappers launch the CUDA kernels for a state on the card and run the
         plain versions for a state on the CPU. An unsharded MatrixBuckets
-        scene asked for on the GPU that has more than one lane chunk runs
-        the ext-layout frame when ``PS_EXT_IO`` asks for it, and on the live
-        tiles when it is unset (counted as ``frame.ext_default``); its tiles
+        scene asked for on the GPU that has more than one lane chunk steps
+        its live tiles only (counted as ``frame.live_tiles``); its tiles
         are ``2^(gpu_threads_per_block_log2 - 4)`` bucket rows where they
         fit (the JAX engine's launch-width mapping). A live edit of
         ``gpu_threads_per_block_log2`` is echoed in the metadata at once and
-        read here, so it takes effect on the next ext frame without a reload
-        (the JAX engine's served behaviour); the classic frame and every
-        other runner ignore the field."""
+        read here, so it takes effect on the next live-tile frame without a
+        reload (the JAX engine's served behaviour); the classic frame and
+        every other runner ignore the field."""
         if self.state is None:
             return
         self.frame_id += 1
@@ -464,17 +424,14 @@ class Simulator:
                 self.state = run_frame_allpairs_cuda(self.state, self._pvec, steps)
                 self.active_kernel = f"allpairs-{where}"
             else:
-                mode = _ext_io_mode()
-                ext_io, compact = mode or (True, True)
-                if ext_io and self._lane_chunks > 1 and self.requested_device == Device.GPU:
-                    if mode is None:
-                        profiling.count("frame.ext_default")
+                if self._lane_chunks > 1 and self.requested_device == Device.GPU:
+                    profiling.count("frame.live_tiles")
                     k = int(self.meta_record["gpu_threads_per_block_log2"])
                     self.state = run_frame_bucket_cuda(
                         self.state, self._pvec, steps, self.grid.move_every,
-                        lane_chunks=self._lane_chunks, ext_io=True, compact_tiles=compact,
+                        lane_chunks=self._lane_chunks, ext_io=True, compact_tiles=True,
                         block_rows=max(1, 1 << max(0, k - 4)))
-                    self.active_kernel = f"bucket-{'compact' if compact else 'ext'}-{where}"
+                    self.active_kernel = f"bucket-compact-{where}"
                 else:
                     self.state = run_frame_bucket_cuda(self.state, self._pvec, steps,
                                                        self.grid.move_every)
@@ -509,23 +466,18 @@ class Simulator:
 
     def start_readback(self, state: Optional[ParticleState] = None) -> ReadbackTicket:
         """Start the device -> host copy of ``state`` (default: the current
-        one, whose frame id the ticket carries): the pack of a bucket grid
-        (the record pack on the card, the fields' pack on the CPU), or a
-        whole CompactArray state; ``read_frame`` consumes the ticket."""
+        one, whose frame id the ticket carries): the record pack of a bucket
+        grid, or a whole CompactArray state; ``read_frame`` consumes the
+        ticket."""
         frame = self.frame_id if state is None else None
         with profiling.annotate("sim.start_readback", frame):
             state = self._grid_state() if state is None else state
             if state is None:  # not the frame owner: rank 0 holds the grid
-                return ReadbackTicket(None, None, None, None, None, frame=frame)
+                return ReadbackTicket(None, frame=frame)
             if state.x.dim() == 3:
-                if state.x.is_cuda:
-                    return self._start_records(state, frame)
-                k = min(self._readback_k, state.x.shape[-1])
-                ncap = self._readback_ncap
-                scalars, packed = dense_readback(state, k, ncap)
-                return ReadbackTicket(state, scalars, packed, k, ncap, frame=frame)
+                return self._start_records(state, frame)
             if not state.x.is_cuda:
-                return ReadbackTicket(state, None, state, None, None, frame=frame)
+                return ReadbackTicket(state, frame=frame)
             with torch.cuda.device(state.x.device):  # the copies and event share its stream
                 host = []
                 for t in state:
@@ -534,7 +486,7 @@ class Simulator:
                     host.append(h)
                 event = torch.cuda.Event()
                 event.record()
-            return ReadbackTicket(state, None, ParticleState(*host), None, None, event, frame)
+            return ReadbackTicket(ParticleState(*host), event=event, frame=frame)
 
     def _start_records(self, state: ParticleState, frame=None) -> ReadbackTicket:
         """The record-pack readback of a (BY, BX, CAP) grid at the sticky
@@ -545,7 +497,7 @@ class Simulator:
         ncap = self._readback_ncap
         words = pack_records(state, ncap)
         if not words.is_cuda:
-            return ReadbackTicket(state, None, None, None, ncap, frame=frame, records=words)
+            return ReadbackTicket(state, ncap, frame=frame, records=words)
         dev = words.device
         with torch.cuda.device(dev):
             side = self._copy_streams.get(dev)
@@ -558,7 +510,7 @@ class Simulator:
                 event = torch.cuda.Event()
                 event.record(side)
             words.record_stream(side)
-        return ReadbackTicket(state, None, None, None, ncap, event, frame, records=host)
+        return ReadbackTicket(state, ncap, event, frame, records=host)
 
     def read_frame(self, state=None, meta: Optional[np.ndarray] = None) -> Frame:
         """The live particles of a ticket (or of ``state``, default the
@@ -579,36 +531,12 @@ class Simulator:
                 return self._unpack(ticket, rec)
 
     def _unpack(self, ticket: ReadbackTicket, rec: np.ndarray) -> Frame:
-        """The frame of a ticket whose copy has landed (a widened redo
-        waits for its own copy here)."""
+        """The frame of a ticket whose copy has landed."""
         if ticket.records is not None:
             return self._unpack_records(ticket, rec)
-        if ticket.scalars is None:
-            parts = state_to_numpy(ticket.packed)
-            # the boolean-mask gather is a fresh array: hand it over
-            return Frame.from_particles(rec, parts[parts["ty"] >= 0], owned=True)
-        mx, total = (int(v) for v in ticket.scalars.tolist())
-        k, ncap = ticket.k, ticket.ncap
-        if mx > k or total > ncap:
-            # a bucket outgrew the slot prefix (or, defensively, the live
-            # count outgrew the pack): widen the sticky sizes and redo
-            profiling.count("readback.redo")
-            self._readback_k = min(pow2_at_least(mx), ticket.state.x.shape[-1])
-            self._readback_ncap = max(ncap, pow2_at_least(total))
-            self._readback_low_streak = 0
-            ticket = self.start_readback(ticket.state)
-            if ticket.event is not None:
-                ticket.event.synchronize()
-            mx, total = (int(v) for v in ticket.scalars.tolist())
-        elif mx <= k // 2 and k > 1:
-            self._readback_low_streak += 1
-            if self._readback_low_streak >= 256:
-                self._readback_k = max(1, k // 2)
-                self._readback_low_streak = 0
-        else:
-            self._readback_low_streak = 0
-        live = dense_to_particles(total, ticket.packed)
-        return Frame.from_particles(rec, live, owned=True)
+        parts = state_to_numpy(ticket.state)
+        # the boolean-mask gather is a fresh array: hand it over
+        return Frame.from_particles(rec, parts[parts["ty"] >= 0], owned=True)
 
     def _unpack_records(self, ticket: ReadbackTicket, rec: np.ndarray) -> Frame:
         """The frame of a record-pack ticket: the header's two words, then a

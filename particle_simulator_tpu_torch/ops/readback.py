@@ -13,19 +13,23 @@ each output position finds its source by inverting that map:
     slot_of[j]   = j - offset[bucket_of[j]]
     out[j]       = state[bucket_of[j], slot_of[j]]   (five gathers)
 
-Plain PyTorch ops (the JAX package has no Pallas kernel here). The device
-then ships exactly ``ncap`` slots per field plus a ``[max_occupancy, total]``
-header; ``kcap`` bounds the source slot prefix. The pack is valid only when
-``max_occupancy <= kcap`` and ``total <= ncap``; ``engine/simulator.py``
-widens both and retries otherwise. That is the readback of a CPU state.
+``dense_readback`` is that map in plain PyTorch ops, the counterpart of
+the JAX package's readback (which has no Pallas kernel here): ``ncap``
+slots per field plus a ``[max_occupancy, total]`` header, ``kcap``
+bounding the source slot prefix; the pack is valid only when
+``max_occupancy <= kcap`` and ``total <= ncap``. ``dense_to_particles``
+interleaves its fields into wire records on the host.
 
-A state on the card is packed by ``pack_records`` instead: one hand-written
-kernel (``csrc/readback_pack.cu``) writes ``ncap`` wire records of 20 bytes
-and the header in one buffer, which the host copies once and ships as a
-``PARTICLE_DTYPE`` view (``record_view``), with no interleave on the host.
-The kernel reads each bucket's whole live prefix, so it needs no ``kcap``;
-its plain version ``records_plain`` is ``dense_readback`` at ``kcap = CAP``
-with the fields interleaved into records. ``LAUNCHES`` counts its launches.
+The engine reads a grid back through ``pack_records``: on the card one
+hand-written kernel (``csrc/readback_pack.cu``) writes ``ncap`` wire
+records of 20 bytes and the header in one buffer, which the host copies
+once and ships as a ``PARTICLE_DTYPE`` view (``record_view``), with no
+interleave on the host. The kernel reads each bucket's whole live prefix,
+so it needs no ``kcap``; its plain version ``records_plain``, which a CPU
+grid runs, is ``dense_readback`` at ``kcap = CAP`` with the fields
+interleaved into records. ``engine/simulator.py`` widens ``ncap`` and packs
+again when the live count outgrew it. ``LAUNCHES`` counts the kernel's
+launches.
 """
 
 from __future__ import annotations
@@ -91,7 +95,8 @@ def dense_to_particles(total: int, packed) -> np.ndarray:
 
 
 def pow2_at_least(n: int, floor: int = 1) -> int:
-    """Smallest power of two >= max(n, floor): the sticky kcap/ncap sizes."""
+    """Smallest power of two >= max(n, floor): the sticky ``ncap`` and the
+    CompactArray capacity."""
     n = max(int(n), floor, 1)
     return 1 << (n - 1).bit_length()
 

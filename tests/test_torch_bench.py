@@ -6,7 +6,9 @@ Contract:
 - the dense scene and the grid pick: bit-identical to bench.py's (particles,
   metadata; every particle count from 1 to 2^24 that the test tries);
 - the JSON line: bench.py's keys in each mode, and the same ``particles``,
-  ``grid``, ``lane_chunks``, ``readback_k`` and ``readback_ncap``;
+  ``grid``, ``lane_chunks``, ``readback_ncap`` and ``ext_io`` (``"auto"``,
+  the rule the Simulator follows); ``readback_k`` is the grid's ``cap``,
+  the slot prefix the record pack reads;
 - ``entry()``'s frame against JAX ``run_frame_bucket``: the North-star
   envelope (``ty`` equal, x/y within 8 fixed-point units, live-lane
   velocities within rtol 1e-4, atol 1e-6); the bench's dense frames: the
@@ -56,8 +58,8 @@ TINY = ["--particles", "512", "--frames", "2", "--steps", "4"]
 
 @pytest.fixture(autouse=True)
 def _no_compile_cache(monkeypatch):
-    """bench.py points jax at a persistent compile cache under $HOME; keep
-    it off, and PS_EXT_IO as it was."""
+    """bench.py points jax at a persistent compile cache under $HOME, and
+    reads PS_EXT_IO: keep the cache off and the variable unset."""
     monkeypatch.setenv("PS_TPU_COMPILE_CACHE", "")
     monkeypatch.delenv("PS_EXT_IO", raising=False)
 
@@ -150,8 +152,9 @@ def _last_json(out: str) -> dict:
     return json.loads(lines[-1])
 
 
-MODES = {"dense": [], "per-frame": ["--per-frame"],
-         "user": ["--user-scene", "--no-warm-siblings"]}
+MODES = {"dense": [], "per-frame": ["--per-frame"], "user": ["--user-scene"]}
+# bench.py's own: no compiles of the sibling lane-chunk variants
+JAX_ONLY = {"user": ["--no-warm-siblings"]}
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
@@ -159,7 +162,7 @@ def test_line_matches_bench_py(mode, capsys):
     """Same keys (and chip_smoke's frozen copy of them), same sizes; the
     port's line is the last on stdout and says where it ran."""
     argv = TINY + MODES[mode]
-    assert jbench.main(argv) == 0
+    assert jbench.main(argv + JAX_ONLY.get(mode, [])) == 0
     ref = _last_json(capsys.readouterr().out)
     assert bench.main(argv + ["--torch-device", "cpu"]) == 0
     got = _last_json(capsys.readouterr().out)
@@ -167,7 +170,8 @@ def test_line_matches_bench_py(mode, capsys):
     assert got["device"] == ref["device"] == "cpu"
     same = ["particles", "steps_per_frame", "frames", "metric", "unit"]
     if mode == "user":
-        same += ["grid", "lane_chunks", "readback_k", "readback_ncap", "ext_io", "scene"]
+        same += ["grid", "lane_chunks", "readback_ncap", "ext_io", "scene"]
+        assert got["readback_k"] == got["grid"][2] and got["ext_io"] == "auto"
     else:
         same += ["live_fraction_end"]
     assert {k: got[k] for k in same} == {k: ref[k] for k in same}
@@ -187,29 +191,6 @@ def test_sharded_line_matches_bench_py(capsys):
     assert got["sharded_mesh"] == ref["sharded_mesh"] == list(jdomain.make_mesh().devices.shape)
     assert got["particles"] == ref["particles"]
     assert got["live_fraction_end"] == ref["live_fraction_end"]
-
-
-def test_user_scene_sets_ext_io_for_its_run_only(monkeypatch):
-    """--ext-io sets PS_EXT_IO while the run lasts (the Simulator reads it
-    at every frame) and restores it; --lane-chunks reaches the Simulator."""
-    from particle_simulator_tpu_torch.engine import simulator
-
-    seen = []
-    real = simulator.Simulator.frame_async
-
-    def spy(self):
-        seen.append((os.environ.get("PS_EXT_IO"), self._lane_chunks))
-        return real(self)
-
-    monkeypatch.setattr(simulator.Simulator, "frame_async", spy)
-    monkeypatch.setenv("PS_EXT_IO", "off")
-    rec = bench.run(TINY + ["--user-scene", "--ext-io", "nocompact", "--lane-chunks", "2",
-                            "--torch-device", "cpu"])
-    assert seen == [("nocompact", 2)] * 3 and rec["lane_chunks"] == 2
-    assert rec["ext_io"] == "nocompact" and os.environ["PS_EXT_IO"] == "off"
-    seen.clear()
-    bench.run(TINY + ["--user-scene", "--torch-device", "cpu"])
-    assert seen == [("off", 1)] * 3  # auto leaves PS_EXT_IO as it was
 
 
 # ---------------------------------------------------------------------------

@@ -205,10 +205,10 @@ def lattice_frame():
 
 def test_readback_check_compares_ticket_bytes_and_held_state(monkeypatch):
     """Phase 13's readback check, driven through a CPU Simulator on the
-    ext frame; its comparison fails on other bytes or a written held state."""
+    live-tile frame its scene picks; its comparison fails on other bytes or
+    a written held state."""
     from particle_simulator_tpu_torch.engine.simulator import Simulator
 
-    monkeypatch.setenv("PS_EXT_IO", "compact")
     sim = Simulator(bucket.GridConfig(8, 4, 8), device="cpu")
     sim.load_frame(lattice_frame())
     assert sim._lane_chunks == 2
@@ -914,13 +914,12 @@ def _sparse_grid():
 
 
 def test_kernel_hold_holds_the_live_tile_step_where_the_unset_default_runs_it(monkeypatch):
-    """With ``PS_EXT_IO`` unset, a grid that the default sends to the
-    live-tile step (two lane chunks) holds that step too and names it on its
-    line; a grid of one lane chunk holds the classic step alone, and with
-    ``PS_EXT_IO`` set no line names the default."""
+    """A grid that the Simulator sends to the live-tile step (two lane
+    chunks) holds that step too and names it and its chunks on its line; a
+    grid of one lane chunk holds the classic step alone, whatever
+    ``PS_EXT_IO`` holds."""
     from particle_simulator_tpu_torch.ops import bucket_cuda
 
-    monkeypatch.delenv("PS_EXT_IO", raising=False)
     state, pv = _sparse_grid()
     one, one_pv = _soak_grid()
     calls = []
@@ -934,19 +933,23 @@ def test_kernel_hold_holds_the_live_tile_step_where_the_unset_default_runs_it(mo
     hold = chip_smoke.KernelHold()
     hold("sparse", state, pv)
     hold("one chunk", one, one_pv)
-    assert [h["step_unset"] for h in hold.held] == ["step_compact", "step"]
+    assert [h["served_step"] for h in hold.held] == ["step_compact", "step"]
+    assert [h["lane_chunks"] for h in hold.held] == [2, 1]
     assert calls == [True] and hold.err["step_compact"] == 0.0
     monkeypatch.setenv("PS_EXT_IO", "off")
     hold("set", state, pv)
-    assert "step_unset" not in hold.held[-1] and calls == [True]
+    assert hold.held[-1]["served_step"] == "step_compact" and calls == [True, True]
 
 
-@pytest.mark.parametrize("ext", ["compact", "nocompact"])
+@pytest.mark.parametrize("ext", ["compact"])
 def test_bench_hold_holds_the_ext_step_and_keeps_the_counts(monkeypatch, ext):
+    """A grid of two lane chunks holds the ``ext`` (live-tile) step, the one
+    the Simulator runs on it, and the launch counts read afterwards what
+    they read before; a grid of one lane chunk holds no ext step."""
     from particle_simulator_tpu_torch.ops import bucket_cuda
 
     state, pv = _sparse_grid()
-    name = chip_smoke.BENCH_EXT[ext]
+    name = f"step_{ext}"
     monkeypatch.setitem(bucket_cuda.LAUNCHES, name, 7)
     real = bucket_cuda.bucket_step_ext_cuda
 
@@ -955,11 +958,11 @@ def test_bench_hold_holds_the_ext_step_and_keeps_the_counts(monkeypatch, ext):
         return real(pair, aux, compact)
 
     monkeypatch.setattr(bucket_cuda, "bucket_step_ext_cuda", counting)
-    hold = chip_smoke.BenchHold(ext=ext)
+    hold = chip_smoke.BenchHold()
     hold("loaded", state, pv)
     assert bucket_cuda.LAUNCHES[name] == 7
     assert hold.held[0]["lane_chunks"] == 2 and hold.held[0]["moved_by_dest"] >= 0
-    assert set(hold.err) == {"step", "dest", "place", "allpairs", "step_compact", "step_ext",
+    assert set(hold.err) == {"step", "dest", "place", "allpairs", "step_compact",
                              *chip_smoke.HALO_KERNELS}
     assert not any(hold.err.values())
     # one lane chunk: the ext frame does not run, so nothing more is held
@@ -981,12 +984,10 @@ def test_bench_hold_raises_on_an_ext_difference(monkeypatch):
         return out._replace(cur=out.cur._replace(x=x))
 
     monkeypatch.setattr(bucket_cuda, "bucket_step_ext_cuda", off_by_one)
-    # PS_EXT_IO set, as the bench sets it: an unset one would hold this
-    # two-chunk grid's live-tile step too (KernelHold)
-    monkeypatch.setenv("PS_EXT_IO", "off")
-    chip_smoke.BenchHold()("classic only", state, pv)
-    with pytest.raises(AssertionError, match="compact ext step"):
-        chip_smoke.BenchHold(ext="compact")("loaded", state, pv)
+    one, one_pv = _soak_grid()
+    chip_smoke.BenchHold()("one chunk: classic only", one, one_pv)
+    with pytest.raises(AssertionError, match="live-tile step"):
+        chip_smoke.BenchHold()("loaded", state, pv)
 
 
 def test_bench_hold_takes_a_mesh_s_blocks_to_hold_halo():
@@ -1002,16 +1003,13 @@ def test_phase_bench_runs_on_the_cpu(capsys):
     CPU: every mode's line passes its checks, each run held two states;
     the CPU launches no kernel."""
     size = ("--particles", "512", "--frames", "2", "--steps", "4")
-    ext_io = os.environ.get("PS_EXT_IO")
     out = chip_smoke.phase_bench("cpu", size=size)
     assert sorted(out["records"]) == sorted(chip_smoke.BENCH_RUNS)
     assert not any(out["launches"].values()) and not any(out["err"].values())
     assert out["records"]["sharded"]["sharded_mesh"] == [1, 1]
-    assert {r["ext_io"] for k, r in out["records"].items() if k.startswith("user")} == {
-        "off", "compact", "nocompact"}
+    assert out["records"]["user"]["ext_io"] == "auto"
     lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("bench ")]
     assert len(lines) == len(chip_smoke.BENCH_RUNS)
-    assert os.environ.get("PS_EXT_IO") == ext_io
 
 
 

@@ -2,9 +2,10 @@
 tile aux, the plain version of the tile-scheduled step (rows 5 and 6 of
 PERF.md's kernel table, ``bucket_step_pallas_ext`` with ``compact`` True
 and False), the ext frame, the schedule's enter/exit hooks, the Simulator's lane-chunk
-choice and ``PS_EXT_IO`` mode (the JAX engine's for every value it is set
-to; unset, the port's own default: the live-tile step wherever the scene
-got lane chunks). The JAX kernels run in interpret mode.
+choice (the JAX engine's) and its runner, which the scene alone picks: the
+live-tile step wherever the scene got lane chunks, the rule of the JAX
+engine's ``PS_EXT_IO=auto``, whatever the environment holds. The JAX
+kernels run in interpret mode.
 
 Contract:
 - the aux (params with omax, flags, order, sizes): bit-identical to JAX;
@@ -15,7 +16,7 @@ Contract:
   star's step envelope: f32 pair sums in another order);
 - against JAX's ext frame (10 steps, rebucket every 4): the same envelope.
 
-The CUDA kernel runs only on the card; ``chip_smoke.py`` phases 12-14 hold
+The CUDA kernel runs only on the card; ``chip_smoke.py`` phases 12 and 13 hold
 it against these plain versions there. What its design relies on is held
 here: a model of "compact each bucket row's live candidates, then three
 contiguous runs a receiver" (``ops/csrc/bucket_stage.cuh``) gives
@@ -253,7 +254,7 @@ def test_schedule_enter_exit_sequence_matches_jax(unroll):
     assert log == [1, 2, 3] + [4, 1, 2, 2, 2, 2, 3] * 2 + [4, 1, 2, 3]
 
 
-def test_lane_chunks_and_ext_io_mode_match_jax(monkeypatch):
+def test_lane_chunks_match_jax(monkeypatch):
     rng = np.random.default_rng(7)
     grids = [(10, 10, 16), (9, 9, 16), (10, 9, 8), (8, 8, 8), (7, 3, 16), (6, 6, 16)]
     for g in grids:
@@ -267,22 +268,17 @@ def test_lane_chunks_and_ext_io_mode_match_jax(monkeypatch):
     occ = np.zeros((1024, 1024), int)
     occ[256:768, 256:768] = 3
     assert simulator._lane_chunks_for(occ, bucket.GridConfig(10, 10, 16)) == 8
-    for value in ("off", "compact", "auto", "on", "1", "nocompact", "COMPACT", "x", ""):
-        monkeypatch.setenv("PS_EXT_IO", value)
-        ext_io, compact = jsimulator._ext_io_mode()
-        assert simulator._ext_io_mode() == (bool(ext_io), compact), value
-    # unset, the JAX engine runs the classic step; the port leaves the choice
-    # to the scene's lane chunks (the Simulator's frame_async)
-    monkeypatch.delenv("PS_EXT_IO", raising=False)
-    assert not jsimulator._ext_io_mode()[0]
-    assert simulator._ext_io_mode() is None
+    # the rule the port always follows is the JAX engine's `auto`: the live
+    # tiles of a scene that got lane chunks
+    monkeypatch.setenv("PS_EXT_IO", "auto")
+    assert tuple(jsimulator._ext_io_mode()) == (True, True)
 
 
 def test_lane_chunks_either_side_of_the_live_tile_limit():
     """Hand-built occupancies of the 1M user scene's grid (1024 x 1024 x 16:
     1024 tiles of 8 rows x 128 buckets at 8 lane chunks) with k live tiles,
     one live bucket each, in tile order: at 768 (75%) the scene keeps 8
-    lane chunks, so an unset ``PS_EXT_IO`` steps its live tiles; at 769 no
+    lane chunks, so the Simulator steps its live tiles; at 769 no
     candidate is 75% live (385 of 512 tiles at 4 chunks, 193 of 256 at 2),
     so it gets one and the classic step."""
     grid = bucket.GridConfig(10, 10, 16)
@@ -313,70 +309,88 @@ def sparse_scene(n_side=12, centre_x=1.0) -> TFrame:
     return frame
 
 
-@pytest.mark.parametrize("mode, kernel", [("compact", "bucket-compact-torch-cpu"),
-                                          ("nocompact", "bucket-ext-torch-cpu")])
-def test_simulator_runs_ext_frames_on_gpu_requests(monkeypatch, mode, kernel):
-    """A CPU Simulator serving a GPU request runs the ext frame when
-    PS_EXT_IO asks for it; its frames are bit-identical to PS_EXT_IO=off.
-    A CPU_THREAD_POOL request keeps the classic step."""
+def served_frames(scene, frames, grid=bucket.GridConfig(8, 4, 8), classic=False):
+    """A CPU Simulator's wire frames of ``scene`` after each of ``frames``
+    frames (with ``classic``, the classic runner forced after load), its
+    runner and its ``frame.live_tiles`` count."""
+    sim = Simulator(grid, device="cpu")
+    sim.load_frame(scene)
+    chunks = sim._lane_chunks
+    if classic:
+        sim._lane_chunks = 1
+    out = []
+    real, profiling.RECORDER = profiling.RECORDER, profiling.Recorder()
+    try:
+        with profiling.recording():
+            for _ in range(frames):
+                sim.frame_async()
+                out.append(sim.read_frame().bytes)
+        counted = profiling.RECORDER.counters.get("frame.live_tiles", 0)
+    finally:
+        profiling.RECORDER = real
+    return out, sim.active_kernel, counted, chunks
+
+
+@pytest.mark.parametrize("mode, kernel", [("compact", "bucket-compact-torch-cpu")])
+def test_simulator_runs_ext_frames_on_gpu_requests(mode, kernel):
+    """A CPU Simulator serving a GPU request runs the ``mode`` ext frame on
+    a scene of two lane chunks; its particles are bit-identical to the
+    classic frame's, which a CPU_THREAD_POOL request of the scene runs."""
     scene = sparse_scene()
-    runs = {}
-    for value in (mode, "off"):
-        monkeypatch.setenv("PS_EXT_IO", value)
-        sim = Simulator(bucket.GridConfig(8, 4, 8), device="cpu")
-        sim.load_frame(scene)
-        assert sim._lane_chunks == 2 and tuple(sim.grid.grid_shape) == (16, 256, 8)
-        frames = []
-        for _ in range(2):
-            sim.frame_async()
-            frames.append(sim.read_frame().bytes)
-        runs[value] = (frames, sim.active_kernel)
-    assert runs[mode][1] == kernel and runs["off"][1] == "bucket-torch-cpu"
-    assert runs[mode][0] == runs["off"][0]
-    monkeypatch.setenv("PS_EXT_IO", mode)
     cpu = scene.copy()
     cpu.metadata.device = simulator.Device.CPU_THREAD_POOL
-    sim = Simulator(bucket.GridConfig(8, 4, 8), device="cpu")
-    sim.load_frame(cpu)
-    sim.frame_async()
-    assert sim.active_kernel == "bucket-torch-cpu"
-
-
-def test_unset_default_runs_the_live_tile_step_on_a_sparse_scene(monkeypatch):
-    """With ``PS_EXT_IO`` unset, a scene of two lane chunks and two live
-    tiles of four runs the live-tile step, its frames byte-equal to
-    ``PS_EXT_IO=off``; ``frame.ext_default`` counts each of its frames, and
-    none where ``PS_EXT_IO`` is set, to ``compact`` or ``off``."""
-    scene = sparse_scene()
     runs = {}
-    for value in (None, "compact", "off"):
-        if value is None:
-            monkeypatch.delenv("PS_EXT_IO", raising=False)
-        else:
-            monkeypatch.setenv("PS_EXT_IO", value)
-        monkeypatch.setattr(profiling, "RECORDER", profiling.Recorder())
+    for name, frame in (("gpu", scene), ("cpu", cpu)):
         sim = Simulator(bucket.GridConfig(8, 4, 8), device="cpu")
-        sim.load_frame(scene)
-        assert sim._lane_chunks == 2
-        frames = []
-        with profiling.recording():
-            for _ in range(3):
-                sim.frame_async()
-                frames.append(sim.read_frame().bytes)
-        counted = profiling.export()["counters"].get("frame.ext_default", 0)
-        runs[value] = (frames, sim.active_kernel, counted)
-    assert [runs[v][1:] for v in runs] == [("bucket-compact-torch-cpu", 3),
-                                           ("bucket-compact-torch-cpu", 0),
-                                           ("bucket-torch-cpu", 0)]
-    assert runs[None][0] == runs["off"][0] == runs["compact"][0]
+        sim.load_frame(frame)
+        assert sim._lane_chunks == 2 and tuple(sim.grid.grid_shape) == (16, 256, 8)
+        parts = []
+        for _ in range(2):
+            sim.frame_async()
+            parts.append(sim.read_frame().particles.tobytes())
+        runs[name] = (parts, sim.active_kernel)
+    assert runs["gpu"][1] == kernel == f"bucket-{mode}-torch-cpu"
+    assert runs["cpu"][1] == "bucket-torch-cpu"
+    assert runs["gpu"][0] == runs["cpu"][0]
+
+
+def test_the_scene_picks_the_live_tile_step_on_a_sparse_scene():
+    """A scene of two lane chunks and two live tiles of four runs the
+    live-tile step, its frames byte-equal to the classic frame's;
+    ``frame.live_tiles`` counts each of its frames, and none of the
+    classic ones."""
+    scene = sparse_scene()
+    live, kernel, counted, chunks = served_frames(scene, 3)
+    classic = served_frames(scene, 3, classic=True)
+    assert chunks == 2
+    assert (kernel, counted) == ("bucket-compact-torch-cpu", 3)
+    assert classic[1:3] == ("bucket-torch-cpu", 0)
+    assert live == classic[0]
+
+
+# the values PS_EXT_IO took before the scene alone picked the runner
+OLD_EXT_IO = ("compact", "auto", "on", "1", "nocompact", "off")
+
+
+@pytest.mark.parametrize("value", OLD_EXT_IO)
+def test_the_environment_does_not_pick_the_runner(monkeypatch, value):
+    """``PS_EXT_IO``, whatever its value, changes nothing: on the two-chunk
+    sparse scene and on a one-chunk scene, the runner, the frame bytes and
+    the ``frame.live_tiles`` count equal those with it unset."""
+    scenes = (sparse_scene(), sparse_scene(centre_x=8.0))
+    monkeypatch.delenv("PS_EXT_IO", raising=False)
+    unset = [served_frames(scene, 2) for scene in scenes]
+    monkeypatch.setenv("PS_EXT_IO", value)
+    assert [served_frames(scene, 2) for scene in scenes] == unset
+    assert [u[1:] for u in unset] == [("bucket-compact-torch-cpu", 2, 2),
+                                      ("bucket-torch-cpu", 0, 1)]
 
 
 @pytest.mark.parametrize("case", ["no candidate", "tiles over 75% live"])
-def test_unset_default_keeps_the_classic_step(monkeypatch, case):
-    """With ``PS_EXT_IO`` unset, a scene of one lane chunk runs the classic
-    step, and ``frame.ext_default`` counts nothing: a grid too narrow to
-    split, and a grid that could split but whose tiles are all live."""
-    monkeypatch.delenv("PS_EXT_IO", raising=False)
+def test_the_scene_picks_the_classic_step_with_one_lane_chunk(monkeypatch, case):
+    """A scene of one lane chunk runs the classic step, and
+    ``frame.live_tiles`` counts nothing: a grid too narrow to split, and a
+    grid that could split but whose tiles are all live."""
     monkeypatch.setattr(profiling, "RECORDER", profiling.Recorder())
     if case == "no candidate":
         scene = _scene(12, 12, distance_factor=1.1, speed=30.0, steps_per_frame=6)
@@ -390,17 +404,16 @@ def test_unset_default_keeps_the_classic_step(monkeypatch, case):
     with profiling.recording():
         sim.frame_async()
     assert sim.active_kernel == "bucket-torch-cpu"
-    assert "frame.ext_default" not in profiling.export()["counters"]
+    assert "frame.live_tiles" not in profiling.export()["counters"]
 
 
 @pytest.mark.parametrize("case", ["cpu mesh", "cpu request"])
-def test_unset_default_leaves_sharded_and_cpu_requests_alone(monkeypatch, case):
-    """With ``PS_EXT_IO`` unset, the scene the default sends to the
-    live-tile step keeps the sharded runner on a mesh and the classic step
-    on a ``CPU_THREAD_POOL`` request."""
+def test_the_scene_picks_no_live_tiles_for_sharded_and_cpu_requests(monkeypatch, case):
+    """The scene that runs the live-tile step on a GPU request keeps the
+    sharded runner on a mesh and the classic step on a
+    ``CPU_THREAD_POOL`` request."""
     from particle_simulator_tpu_torch.parallel import domain
 
-    monkeypatch.delenv("PS_EXT_IO", raising=False)
     monkeypatch.setattr(profiling, "RECORDER", profiling.Recorder())
     scene = sparse_scene()
     mesh = None
@@ -413,7 +426,7 @@ def test_unset_default_leaves_sharded_and_cpu_requests_alone(monkeypatch, case):
     with profiling.recording():
         sim.frame_async()
     assert sim.active_kernel == ("sharded-torch-cpu" if mesh else "bucket-torch-cpu")
-    assert "frame.ext_default" not in profiling.export()["counters"]
+    assert "frame.live_tiles" not in profiling.export()["counters"]
 
 
 def test_ext_wrapper_validates_and_keeps_held_buffers():

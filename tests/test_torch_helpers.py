@@ -363,9 +363,10 @@ def test_sync_on_cpu_states(case, monkeypatch):
     assert sim.read_frame().bytes == before
 
 
-def sparse_scene(n_side=12) -> Frame:
+def sparse_scene(n_side=12, centre_x=1.0) -> Frame:
     """A hex lattice in the left sixth of a 16:1 box: two lane chunks, so a
-    GPU request runs the ext frame when PS_EXT_IO asks for it."""
+    GPU request runs the live-tile frame. Centred at ``centre_x`` 8 (in box
+    heights) it straddles both chunks and gets one, so the classic frame."""
     frame = Frame.new()
     meta = frame.metadata
     r0 = MieParams.nitrogen().force0_r()
@@ -375,18 +376,18 @@ def sparse_scene(n_side=12) -> Frame:
     meta.step_dt = 1e-14
     meta.steps_per_frame = 2
     lat = ParticleLattice((n_side, n_side), distance_factor=1.1, velocity=(0.0, 30.0))
-    lat.hex_square(frame, (side, side / 2), rng=np.random.default_rng(5))
+    lat.hex_square(frame, (side * centre_x, side / 2), rng=np.random.default_rng(5))
     return frame
 
 
 @pytest.mark.parametrize("mode", ["off", "compact"])
 def test_live_launch_width_edit_is_echoed_and_read_by_the_ext_frame(monkeypatch, mode):
     """A metadata-only frame that changes ``gpu_threads_per_block_log2`` is
-    echoed by the next frame read; the ext frame's tile height follows it
-    (2^(k - 4) bucket rows) without a reload, the classic frame ignores it."""
+    echoed by the next frame read; the live-tile frame's tile height follows
+    it (2^(k - 4) bucket rows) without a reload, the classic frame of a
+    one-chunk scene (``off``) ignores it."""
     from particle_simulator_tpu_torch.engine import simulator
 
-    monkeypatch.setenv("PS_EXT_IO", mode)
     seen = []
     real = simulator.run_frame_bucket_cuda
 
@@ -396,8 +397,9 @@ def test_live_launch_width_edit_is_echoed_and_read_by_the_ext_frame(monkeypatch,
 
     monkeypatch.setattr(simulator, "run_frame_bucket_cuda", spy)
     sim = Simulator(bucket.GridConfig(8, 4, 8), device="cpu")
-    scene = sparse_scene()
+    scene = sparse_scene(centre_x=1.0 if mode == "compact" else 8.0)
     sim.load_frame(scene)
+    assert sim._lane_chunks == (2 if mode == "compact" else 1)
     loaded = sim.state
     sim.frame_async()
     assert sim.read_frame().metadata.gpu_threads_per_block_log2 == 7

@@ -3,11 +3,12 @@ and the ``[max_occupancy, total]`` header identical, bit for bit, on the
 densities of tests/test_readback.py; and the widen-and-retry path of the
 port's ``Simulator.read_frame`` reading back exactly the live particles.
 
-Then the record pack (``ops/readback.py:pack_records``): its plain version
-against today's frame bytes, the Simulator's record path on both redo paths
-and across two tickets, and a Python model of the CUDA kernel's three
-launches against the plain version (tests/test_torch_readback_card.py holds
-the kernel itself on the card)."""
+Then the record pack (``ops/readback.py:pack_records``), the one readback
+of a bucket grid: its plain version against the fields' pack and host
+interleave (``dense_readback`` + ``dense_to_particles``), a CPU
+Simulator's frames through it, its redo path and two tickets, and a Python
+model of the CUDA kernel's three launches against the plain version
+(tests/test_torch_readback_card.py holds the kernel itself on the card)."""
 
 import numpy as np
 import pytest
@@ -111,17 +112,6 @@ def _sim(frame):
     return sim, ref[ref["ty"] >= 0]
 
 
-def test_read_frame_widens_kcap_and_retries():
-    sim, ref = _sim(_scene(16, 16, distance_factor=1.1, speed=5.0, box_fill=0.4))
-    seeded = sim._readback_k
-    assert seeded >= 2
-    sim._readback_k = 1  # force an overflow against the real occupancy
-    out = sim.read_frame()
-    assert out.particle_count == len(ref)
-    assert out.particles.tobytes() == ref.tobytes()
-    assert sim._readback_k == seeded  # grew back to the true pow2 width
-
-
 def test_read_frame_widens_ncap_and_retries():
     sim, ref = _sim(_scene(12, 12, distance_factor=1.1, speed=5.0, box_fill=0.4))
     sim._readback_ncap = 4  # pack shorter than the live count
@@ -133,15 +123,16 @@ def test_read_frame_widens_ncap_and_retries():
 
 # -- the record pack (ops/readback.py:pack_records, csrc/readback_pack.cu) ----
 
-def frame_of_fields(state, ncap):
-    """Today's frame of a CPU grid: the fields' pack, then the host
-    interleave (``dense_readback`` + ``dense_to_particles``)."""
+def frame_of_fields(state, ncap, meta=None):
+    """The frame of a grid through the fields' pack at ``kcap = CAP``, then
+    the host interleave (``dense_readback`` + ``dense_to_particles``)."""
     scalars, packed = dense_readback(state, state.x.shape[-1], ncap)
-    return Frame.from_particles(META, dense_to_particles(int(scalars[1]), packed), owned=True)
+    live = dense_to_particles(int(scalars[1]), packed)
+    return Frame.from_particles(META if meta is None else meta, live, owned=True)
 
 
 def check_records(fields, ncap=None):
-    """The plain record pack of ``fields`` against today's frame: the same
+    """The plain record pack of ``fields`` against the fields' frame: the same
     wire bytes, the exact header, tombstoned pads; returns the words."""
     state, _ = from_reference(fields, META)
     counts = (fields[4] >= 0).sum(-1)
@@ -181,34 +172,54 @@ def test_record_pack_empty_rows_and_pads():
 
 
 def record_sim(frame):
-    """A CPU Simulator on ``frame`` and the frame the fields' path reads."""
+    """A CPU Simulator on ``frame`` and the frame of its state through the
+    fields' pack."""
     sim = Simulator(GridConfig(4, 4, 8), device="cpu")
     sim.load_frame(frame)
-    want = sim.read_frame()
+    want = frame_of_fields(sim.state, pow2_at_least(sim.live_count), sim.meta_record)
     return sim, want
 
 
-@pytest.mark.parametrize("overflow", ["kcap", "ncap"])
+@pytest.mark.parametrize("overflow", ["ncap"])
 def test_record_path_on_both_redo_paths(overflow):
-    """The record path's frame equals the fields' path's when either is
-    widened and redone: kcap (which only the fields' pack has) and ncap."""
+    """The record path's frame equals the fields' path's when its pack
+    length (``ncap``, the one sticky size it has) is widened and redone."""
     sim, want = record_sim(_scene(16, 16, distance_factor=1.1, speed=5.0, box_fill=0.4))
     with profiling.recording():
         before = dict(profiling.RECORDER.counters)
-        if overflow == "kcap":
-            sim._readback_k = 1
-            fields = sim.read_frame()
-        else:
-            sim._readback_ncap = 4
+        sim._readback_ncap = 4
         records = sim.read_frame(sim._start_records(sim.state))
         after = profiling.RECORDER.counters
     assert records.bytes == want.bytes
-    if overflow == "kcap":
-        assert fields.bytes == want.bytes
     redo = after.get("readback.redo", 0) - before.get("readback.redo", 0)
     assert redo == 1
     assert after["readback.records"] - before.get("readback.records", 0) == 1
     assert sim._readback_ncap == pow2_at_least(want.particle_count)
+
+
+@pytest.mark.parametrize("case", ["sparse lattice", "full buckets", "all dead"])
+def test_cpu_grids_read_back_through_the_record_pack(case):
+    """A CPU Simulator's ``read_frame`` of a bucket grid gives the bytes of
+    ``dense_readback`` + ``dense_to_particles`` at ``kcap = CAP``, and
+    ``readback.records`` counts each frame: the record pack is a CPU grid's
+    readback too."""
+    sim, _ = record_sim(_scene(12, 12, distance_factor=1.1, speed=50.0, box_fill=0.4))
+    if case != "sparse lattice":
+        rng = np.random.default_rng(3)
+        fields = random_fields(rng, tuple(sim.grid.grid_shape), 1.0 if case == "full buckets"
+                               else 0.0)
+        sim.state, _ = from_reference(fields, sim.meta_record)
+    got, want = [], []
+    with profiling.recording():
+        before = dict(profiling.RECORDER.counters)
+        for _ in range(2):
+            if case == "sparse lattice":
+                sim.frame_async()
+            want.append(frame_of_fields(sim.state, sim.grid.capacity, sim.meta_record).bytes)
+            got.append(sim.read_frame().bytes)
+        after = profiling.RECORDER.counters
+    assert got == want
+    assert after["readback.records"] - before.get("readback.records", 0) == 2
 
 
 def test_record_frames_of_two_tickets_stay_apart_and_writable():

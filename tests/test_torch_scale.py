@@ -14,7 +14,7 @@ Contract:
 - phase 23's rows are bench.py's commands, their live counts and grids the
   dense grid pick's; its ``--sharded --per-frame`` key set is bench.py's;
 - phase 23 passes on the CPU at 512 particles, and fails when a held kernel
-  differs from its plain version or a row leaves PS_EXT_IO changed.
+  differs from its plain version.
 
 The 4M scene's ty is built from the lattice's bucket occupancy (live slots
 are a prefix of each bucket, all of species 0, as ``bucketize_numpy`` lays
@@ -173,11 +173,12 @@ def test_scale_rows_are_the_recorded_commands():
         assert chip_smoke.bench_particles(args) == live
         assert bench.dense_grid_config(args.particles).grid_shape == shape
         assert args.per_frame and args.frames == 24
-    for label in ("user 4M off", "user 4M compact"):
-        args = parsed(label)
-        assert chip_smoke.bench_particles(args) == USER_SIDE ** 2 and args.frames == 10
+    args = parsed("user 4M")
+    assert args.user_scene and not args.sharded
+    assert chip_smoke.bench_particles(args) == USER_SIDE ** 2 and args.frames == 10
+    assert chip_smoke.SCALE_RUNS["user 4M"][1][0] == "step_compact"  # its 8 lane chunks
     assert parsed("sharded 16M").sharded
-    assert parsed(chip_smoke.SCALE_READBACK).ext_io == "compact"
+    assert chip_smoke.SCALE_READBACK == "user 4M"
 
 
 def test_sharded_per_frame_keys_match_bench_py(capsys):
@@ -199,11 +200,11 @@ def _sparse_state():
 
 
 def test_scale_times_cover_each_kernel_of_the_path():
-    """On a sparse grid with ``compact``: the classic step, the dest, the
-    place (with the library call) and the compact step, each with a bound
+    """On a sparse grid (two lane chunks): the classic step, the dest, the
+    place (with the library call) and the live-tile step, each with a bound
     (the live slots' for the steps) and no time on the CPU."""
     state, pv = _sparse_state()
-    out = chip_smoke.scale_times(state, pv, "compact", chip_smoke.not_timed)
+    out = chip_smoke.scale_times(state, pv, chip_smoke.not_timed)
     assert out["lane_chunks"] == 2
     kernels = out["kernels"]
     assert set(kernels) == {"step", "dest", "place", "step_compact"}
@@ -232,7 +233,7 @@ def test_phase_scale_runs_on_the_cpu(capsys):
     lines = out["lines"]
     assert lines["sharded 16M"]["record"]["sharded_mesh"] == [2, 2]
     assert lines["sharded 16M"]["block"] == [4, 6, 6, 8]
-    assert set(lines["user 4M compact"]["readback"]) >= {"active_kernel", "particles"}
+    assert set(lines["user 4M"]["readback"]) >= {"active_kernel", "particles"}
     for line in lines.values():
         assert line["memory_peak_bytes"] == {"run": None, "holds": None}
         assert line["seconds"]["row"] >= line["seconds"]["frames"] > 0
@@ -256,19 +257,3 @@ def test_phase_scale_fails_on_a_held_kernel_difference(monkeypatch):
     with pytest.raises(AssertionError, match="dest ids differ"):
         chip_smoke.phase_scale("cpu", runs=("dense 4M",),
                                size=("--particles", "512", "--frames", "1", "--steps", "2"))
-
-
-def test_phase_scale_fails_when_a_row_leaves_ps_ext_io(monkeypatch):
-    import contextlib
-    import os
-
-    @contextlib.contextmanager
-    def leaky(mode):
-        os.environ["PS_EXT_IO"] = mode
-        yield
-
-    monkeypatch.delenv("PS_EXT_IO", raising=False)
-    monkeypatch.setattr(bench, "ext_io_env", leaky)
-    with pytest.raises(AssertionError, match="left PS_EXT_IO at 'off'"):
-        chip_smoke.phase_scale("cpu", runs=("user 4M off",),
-                               size=("--particles", "64", "--frames", "1", "--steps", "2"))
