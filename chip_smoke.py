@@ -190,7 +190,22 @@ exits non-zero without printing a result):
     clipped, header exact); kernel and plain times (20 launches behind the
     spin kernel) at the lattice grid beside the byte bound
     (``readback_bound``). ``python3 chip_smoke.py --readback-pack`` runs
-    phases 1, 2 and 24 alone.
+    phases 1, 2 and 24 alone;
+25. (run right after phase 13) the live-tile step (row 5,
+    ``bucket_step_kernel_tiles<true>``) on the 1M lattice of the benchmark's
+    ``editor-lattice-1m`` (``user_scene(1024)``: a 1024 x 1024 x 16 grid,
+    8 lane chunks) as loaded and after 300 and 900 frames served under the
+    ``drag`` traffic's cursor (the lattice spreads over more tiles, the
+    state the served cell spends its window in): on each state two steps
+    held bit for bit against the classic step, the first against the plain
+    ext step, the time beside the bound, omax and the live-tile share; the
+    step's registers, spills and blocks a multiprocessor (and the
+    every-tile instance's); ``step.live_tile_launches`` over the drag equal
+    to the live-tile launches and to its frames' steps; then the small
+    grids of ``LIVE_TILE_GEOMETRIES`` (16-byte stage, 4- 8- and 16-row and
+    one-bucket tiles, cap 64 with omax 20, the all-dead grid) against the
+    classic and plain steps. ``python3 chip_smoke.py --live-tile`` runs
+    phases 1, 2 and 25 alone (~60 s of command).
 
 Every child process (the headless editors of phases 4, 11 and 20, the
 web editor and the daemons of phase 21) prints the modules of jax or of the
@@ -1632,6 +1647,168 @@ def phase_ext_frame(device, scene, frames: int, timed: int):
             "omax_and_live_tiles_after_compact_frames": tiles,
             "host_enqueue_ms_per_frame": host, "device": busy, "readback_check": readback}
     print("ext frame: " + json.dumps(line), flush=True)
+    return line
+
+
+# phase 25: the live-tile step (row 5) as it serves the 1M lattice
+# (grid, lane chunks, rows a tile asked for, width of the live slots in a
+# bucket): the live-tile step's 16-byte stage where omax is small beside
+# cap, on 8- 4- and 16-row tiles, one-bucket tiles, cap 64 with omax at most
+# 32 on a narrowed sub-tile whose last column is cut, and the all-dead grid
+LIVE_TILE_GEOMETRIES = (
+    ((16, 32, 16), 2, 8, 5),
+    ((16, 64, 16), 4, 4, 8),
+    ((32, 16, 12), 1, 16, 6),
+    ((8, 8, 16), 8, 8, 3),
+    ((16, 32, 64), 1, 8, 20),
+    ((16, 32, 16), 2, 8, 0),
+)
+# the drag of the benchmark's ``drag`` traffic (benchmark/traffic/drag.json):
+# the cursor circles the box centre at a quarter of its side, a turn every
+# 4 s at ~35 frames a second, size 0.05; the states are read as loaded and
+# after these frames (the lattice has spread over ~half of its tiles after
+# 300 and over all of them after 900)
+LIVE_TILE_DRAG_FRAMES = (300, 900)
+DRAG_RADIUS, DRAG_TURN_FRAMES, DRAG_SIZE = 0.25, 140, 0.05
+
+
+def live_tile_sweep(device) -> list:
+    """The live-tile step on small random half-live grids whose live slots
+    lie below a width in each bucket (``LIVE_TILE_GEOMETRIES``): two steps
+    on one buffer pair bit-identical to the classic step, the first to the
+    plain ext step."""
+    import torch
+
+    from particle_simulator_tpu_torch.engine.state import ParticleState, SimParams
+    from particle_simulator_tpu_torch.io.frame import default_metadata
+    from particle_simulator_tpu_torch.ops import bucket_cuda as bc
+    from particle_simulator_tpu_torch.physics import bucket
+
+    meta = default_metadata()
+    meta["step_dt"] = 10e-15
+    pv = SimParams.from_record(meta).vector(device)
+    lines = []
+    for seed, (shape, chunks, rows, width) in enumerate(LIVE_TILE_GEOMETRIES):
+        rng = np.random.default_rng(seed)
+        n = int(np.prod(shape))
+        live = (rng.random(shape) < 0.5) & (np.arange(shape[2]) < width)
+        fields = (rng.integers(0, 2**32, n, dtype=np.uint32).view(np.int32),
+                  rng.integers(0, 2**32, n, dtype=np.uint32).view(np.int32),
+                  rng.normal(0, 50, n).astype(np.float32),
+                  rng.normal(0, 50, n).astype(np.float32),
+                  np.where(live.ravel(), 0, -1).astype(np.int32))
+        state = ParticleState(*(torch.from_numpy(a).to(device).reshape(shape) for a in fields))
+        state.ty[: shape[0] // 2, : shape[1] // 3] = -1  # dead tiles and buckets
+        aux = bucket.ext_step_aux(state, pv, chunks, rows)
+        classic = [bc.bucket_step_cuda(state, pv)]
+        classic.append(bc.bucket_step_cuda(classic[0], pv))
+        pair = bc.bucket_step_ext_cuda(bc.ext_pair(state), aux, True)
+        same_state(pair.cur, bucket.bucket_step_ext(state, aux, True), f"{shape} vs plain")
+        same_state(pair.cur, classic[0], f"{shape} step 0 vs classic")
+        pair = bc.bucket_step_ext_cuda(pair, aux, True)
+        same_state(pair.cur, classic[1], f"{shape} step 1 vs classic")
+        lines.append({"grid": list(shape), "lane_chunks": chunks, "ty_rows": aux.ty_rows,
+                      "omax": int(aux.params[-1]), "live_tile_share": live_tile_share(aux),
+                      "live": int((state.ty >= 0).sum())})
+    return lines
+
+
+def drag_edit(sim, frame: int):
+    """The metadata-only frame of the drag's cursor at served frame
+    ``frame`` (``LIVE_TILE_DRAG_FRAMES``' circle)."""
+    import math
+
+    from particle_simulator_tpu_torch.io.frame import Frame
+
+    angle = 2.0 * math.pi * frame / DRAG_TURN_FRAMES
+    edit = Frame.from_metadata(sim.meta_record.copy())
+    edit.metadata.cursor_pos = (0.5 + DRAG_RADIUS * math.cos(angle),
+                                0.5 + DRAG_RADIUS * math.sin(angle))
+    edit.metadata.cursor_size = DRAG_SIZE
+    return edit
+
+
+def live_tile_state_line(state, pv, chunks: int, rows: int, reps: int, sass: dict) -> dict:
+    """The live-tile step on one state: two steps on one buffer pair held
+    against the classic CUDA step, the first against the plain ext step, bit
+    for bit; its time beside the bound, omax and the live-tile share."""
+    from particle_simulator_tpu_torch.ops import bucket_cuda as bc
+    from particle_simulator_tpu_torch.physics import bucket
+
+    aux = bucket.ext_step_aux(state, pv, chunks, rows)
+    first = bc.bucket_step_ext_cuda(bc.ext_pair(state), aux, True)
+    same_state(first.cur, bucket.bucket_step_ext(state, aux, True), "live-tile step vs plain")
+    classic = bc.bucket_step_cuda(state, pv)
+    same_state(first.cur, classic, "live-tile step vs the classic step")
+    second = bc.bucket_step_ext_cuda(first, aux, True)
+    same_state(second.cur, bc.bucket_step_cuda(classic, pv), "live-tile step 1 vs classic")
+    pair = bc.ext_pair(state)
+    ms = cuda_ms(lambda: bc.bucket_step_ext_cuda(pair, aux, True), reps)
+    bnd = ext_bound(state, sass)
+    return {"omax": int(aux.params[-1]), "live_tile_share": live_tile_share(aux),
+            "live": int((state.ty >= 0).sum()), "pairs_per_step": bucket_pairs(state),
+            "ms": ms, "bound": bnd, "share_of_bound": bnd["bound_ms"] / ms}
+
+
+def phase_live_tile(device, reps: int, sass: dict) -> dict:
+    """Phase 25: the live-tile step (``bucket_step_kernel_tiles<true>``,
+    row 5) on the 1M lattice of the ``editor-lattice-1m`` configuration
+    (1024 x 1024 at 1.1 r0 over half of the box's side: a 1024 x 1024 x 16
+    grid of 8 lane chunks), as loaded and after the served frames of a
+    cursor drag (``LIVE_TILE_DRAG_FRAMES``): on each state held bit for bit
+    against its plain version and the classic step and timed beside its
+    bound, with omax and the live-tile share; the step's registers and
+    blocks a multiprocessor, and the every-tile instance's beside them; the
+    drag's ``step.live_tile_launches`` count against the launches; then the
+    small grids of ``LIVE_TILE_GEOMETRIES``."""
+    import ctypes
+
+    from particle_simulator_tpu_torch.engine.simulator import Simulator
+    from particle_simulator_tpu_torch.ops import bucket_cuda as bc
+    from particle_simulator_tpu_torch.ops import build
+    from particle_simulator_tpu_torch.utils import profiling
+
+    sim = Simulator(device=device)
+    sim.load_frame(user_scene(1024))
+    gy, gx, cap = sim.state.x.shape
+    chunks, pv = sim._lane_chunks, sim._pvec
+    rows = max(1, 1 << max(0, int(sim.meta_record["gpu_threads_per_block_log2"]) - 4))
+    ptxas = ptxas_summary((build.BUILD_DIR / build.BUILD_LOG).read_text())
+    occupancy = {}
+    for name, compact in (("bucket_step_kernel_tiles<1>", 1), ("bucket_step_kernel_tiles<0>", 0)):
+        out = (ctypes.c_int * 2)()
+        rc = build.library().ps_bucket_tiles_occupancy(rows, gx // chunks, cap, compact, out)
+        if rc:
+            raise AssertionError(f"ps_bucket_tiles_occupancy failed with cudaError_t {rc}")
+        occupancy[name] = {**ptxas.get(name, {}), "blocks_per_sm": out[0], "smem_bytes": out[1]}
+    states = {"loaded": live_tile_state_line(sim.state, pv, chunks, rows, reps, sass)}
+    real, profiling.RECORDER = profiling.RECORDER, profiling.Recorder()
+    launched = served = 0  # the drag's frames' launches, not the holds' and timings'
+    try:
+        with profiling.recording():
+            for target in LIVE_TILE_DRAG_FRAMES:
+                before = bc.LAUNCHES["step_compact"]
+                while served < target:
+                    sim.update_metadata(drag_edit(sim, served))
+                    sim.frame_async()
+                    served += 1
+                launched += bc.LAUNCHES["step_compact"] - before
+                states[f"after {target} frames"] = live_tile_state_line(
+                    sim.state, sim._pvec, chunks, rows, reps, sass)
+        counted = profiling.RECORDER.counters.get("step.live_tile_launches", 0)
+    finally:
+        profiling.RECORDER = real
+    if sim.active_kernel != "bucket-compact-cuda":
+        raise AssertionError(f"the drag ran through {sim.active_kernel}")
+    steps = served * sim.params.steps_per_frame
+    if not counted == launched == steps:
+        raise AssertionError(f"step.live_tile_launches {counted}, launches {launched}, "
+                             f"steps {steps}")
+    line = {"grid": [gy, gx, cap], "lane_chunks": chunks, "ty_rows": rows, "frames": served,
+            "step_live_tile_launches": counted, "launches": launched, "kernels": occupancy,
+            "states": states}
+    print("live-tile step: " + json.dumps(line), flush=True)
+    print("live-tile geometries: " + json.dumps(live_tile_sweep(device)), flush=True)
     return line
 
 
@@ -3326,6 +3503,7 @@ def main() -> int:
     scene = user_scene()
     ext = phase_ext_kernels(device, scene, GridConfig(4, 4, 16), reps=20, sass=sass)
     phase_ext_frame(device, scene, frames=3, timed=5)
+    phase_live_tile(device, reps=20, sass=sass)
     # 20. two processes sharing the card: the (2, 2) global mesh, two shards each
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as workdir:
         mp = phase_multiprocess(dense_cfg, workdir, world=2, n_shards=4, own_cards=False,
@@ -3478,8 +3656,9 @@ def multi_card(device, dense_cfg) -> dict:
     return {**mp, "err": {k: max(v, bench_err[k], scale_err[k]) for k, v in mp["err"].items()}}
 
 
-def main_readback_pack() -> int:
-    """Phases 1, 2 and 24 alone (``--readback-pack``)."""
+def main_alone(phase: str) -> int:
+    """Phases 1, 2 and one other alone: 24 (``--readback-pack``) or 25
+    (``--live-tile``)."""
     import torch
 
     from particle_simulator_tpu_torch.ops import build
@@ -3495,17 +3674,21 @@ def main_readback_pack() -> int:
     t0 = time.perf_counter()
     build.library()
     ptxas = ptxas_summary((build.BUILD_DIR / build.BUILD_LOG).read_text())
+    shown = "pack" if phase == "--readback-pack" else "bucket_step"
     print("build: " + json.dumps({"seconds": time.perf_counter() - t0,
-                                  "ptxas": {k: v for k, v in ptxas.items() if "pack" in k}}),
+                                  "ptxas": {k: v for k, v in ptxas.items() if shown in k}}),
           flush=True)
-    phase_readback_pack("cuda", reps=20)
+    if phase == "--readback-pack":
+        phase_readback_pack("cuda", reps=20)
+    else:
+        phase_live_tile("cuda", reps=20, sass=FORCE_LAW_COUNTS)
     print(json.dumps({"ok": True}), flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--readback-pack"]:
-        sys.exit(main_readback_pack())
+    if sys.argv[1:2] in (["--readback-pack"], ["--live-tile"]):
+        sys.exit(main_alone(sys.argv[1]))
     if sys.argv[1:2] == ["--child-frame"]:
         from particle_simulator_tpu_torch.physics.bucket import GridConfig
 

@@ -44,7 +44,8 @@ is recorded unless recording is on) share it: ``sim.load_frame`` (with
 counts the readbacks widened and done again, ``readback.records`` the frames
 of a bucket grid read back through the record pack (on the card or the
 CPU; a redo counts once), ``frame.live_tiles`` the frames sent to the
-live-tile step, ``frame.allpairs``
+live-tile step, ``step.live_tile_launches`` the live-tile step's kernel
+launches of those frames (one a step, on the card only), ``frame.allpairs``
 the frames sent to the all-pairs step and ``allpairs.swept_pairs`` the pair
 evaluations those frames' launches sweep (every slot, tombstones included,
 squared, times the steps; beside the live pairs that a step's least time
@@ -399,7 +400,8 @@ class Simulator:
         wrappers launch the CUDA kernels for a state on the card and run the
         plain versions for a state on the CPU. An unsharded MatrixBuckets
         scene asked for on the GPU that has more than one lane chunk steps
-        its live tiles only (counted as ``frame.live_tiles``); its tiles
+        its live tiles only (counted as ``frame.live_tiles``, and on the
+        card its steps' launches as ``step.live_tile_launches``); its tiles
         are ``2^(gpu_threads_per_block_log2 - 4)`` bucket rows where they
         fit (the JAX engine's launch-width mapping). A live edit of
         ``gpu_threads_per_block_log2`` is echoed in the metadata at once and
@@ -426,6 +428,8 @@ class Simulator:
             else:
                 if self._lane_chunks > 1 and self.requested_device == Device.GPU:
                     profiling.count("frame.live_tiles")
+                    if where == "cuda":
+                        profiling.count("step.live_tile_launches", steps)
                     k = int(self.meta_record["gpu_threads_per_block_log2"])
                     self.state = run_frame_bucket_cuda(
                         self.state, self._pvec, steps, self.grid.move_every,

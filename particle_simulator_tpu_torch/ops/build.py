@@ -51,6 +51,9 @@ _SIGNATURES = {
     "ps_allpairs_segment": [],
     # pairs per iteration of the tile-scheduled step's candidate run loop
     "ps_bucket_tiles_pairs_per_iter": [],
+    # ty_rows, row_buckets, cap, compact, out: blocks of the tile-scheduled
+    # step an SM holds, and its shared memory a block
+    "ps_bucket_tiles_occupancy": [_I] * 4 + [_P],
     # x, y, vx, vy, ty, scratch, out, n_buckets, cap, ncap, vec4, stream
     "ps_readback_pack": [_P] * 7 + [ctypes.c_long, _I, ctypes.c_long, _I, _P],
     # the buckets a block of the readback pack takes (its scratch size)

@@ -129,6 +129,108 @@ static __device__ __forceinline__ int stage_region(const uint32_t* __restrict__ 
   return sm.row_recv[g.in_rows];
 }
 
+// The live slots below the stage width (at most 32) of the bucket whose
+// first slot is `base`, as a mask: ty read 16 bytes at a time (cap a
+// multiple of 4, aligned fields)
+static __device__ __forceinline__ uint32_t live_mask(const int32_t* __restrict__ ty, long base,
+                                                     int width) {
+  uint32_t live = 0;
+  for (int s = 0; s < width; s += 4) {
+    const int4 t = __ldg(reinterpret_cast<const int4*>(ty + base + s));
+    live |= ((uint32_t)(t.x >= 0) | (uint32_t)(t.y >= 0) << 1 | (uint32_t)(t.z >= 0) << 2 |
+             (uint32_t)(t.w >= 0) << 3) << s;
+  }
+  return width < 32 ? live & ((1u << width) - 1u) : live;
+}
+
+// write the live slots of a bucket's mask `live` (first slot `base`) into
+// cand / info from `pos` on, slots ascending: x and y of each four slots
+// that hold a live one, 16 bytes at a time
+static __device__ __forceinline__ void write_live(const uint32_t* __restrict__ x,
+                                                  const uint32_t* __restrict__ y, long base,
+                                                  uint32_t live, uint32_t tag,
+                                                  const StageBuffers& sm, int pos) {
+#pragma unroll 2
+  for (int s = 0; s < 32 && (live >> s); s += 4) {
+    const uint32_t m = (live >> s) & 0xfu;
+    if (!m) continue;
+    const uint4 xv = __ldg(reinterpret_cast<const uint4*>(x + base + s));
+    const uint4 yv = __ldg(reinterpret_cast<const uint4*>(y + base + s));
+    const uint32_t xs[4] = {xv.x, xv.y, xv.z, xv.w}, ys[4] = {yv.x, yv.y, yv.z, yv.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (!(m >> e & 1u)) continue;
+      sm.cand[pos] = make_uint2(xs[e], ys[e]);
+      sm.info[pos++] = tag | (uint32_t)(s + e);
+    }
+  }
+}
+
+// stage_region() with 16-byte loads, for a grid whose cap is a multiple of
+// 4 and whose fields are 16-byte aligned, and a stage width of at most 32:
+// a thread reads its bucket's ty below the width four slots at a time into
+// a mask of live slots (live_mask), then x and y of each four slots that
+// hold a live one (write_live). So a bucket's few loads are in flight
+// together, where stage_region() reads slot after slot and waits for each
+// live slot's x and y in turn. The same counts, scan, compacted order,
+// bucket starts and row prefix.
+static __device__ __forceinline__ int stage_region_vec(const uint32_t* __restrict__ x,
+                                                       const uint32_t* __restrict__ y,
+                                                       const int32_t* __restrict__ ty,
+                                                       const StageGeom& g, const StageBuffers& sm) {
+  const int nb = g.rows * g.cols;
+  const int b = threadIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  long base = 0;
+  uint32_t live = 0;
+  if (b < nb) {
+    const int rr = b / g.cols;
+    const int by = g.row0 + rr, bx = g.col0 + (b - rr * g.cols);
+    if (by >= 0 && by < g.gy && bx >= 0 && bx < g.gx) {
+      base = g.grid_base + ((long)by * g.gx + bx) * g.cap;
+      live = live_mask(ty, base, g.width);
+    }
+  }
+  const int cnt = __popc(live);
+  // exclusive scan of cnt over the block's threads, in bucket order
+  int inc = cnt;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, inc, d);
+    if (lane >= d) inc += v;
+  }
+  if (lane == 31) sm.scratch[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    const int n_warps = (blockDim.x + 31) >> 5;
+    const int total = lane < n_warps ? sm.scratch[lane] : 0;
+    int w = total;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, w, d);
+      if (lane >= d) w += v;
+    }
+    sm.scratch[lane] = w - total;
+  }
+  __syncthreads();
+  const int pos = inc - cnt + sm.scratch[warp];
+  if (b < nb) sm.start[b] = pos;
+  if (b == nb - 1) sm.start[nb] = pos + cnt;
+  write_live(x, y, base, live, (uint32_t)b << 16, sm, pos);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int acc = 0;
+    for (int r = 0; r < g.in_rows; ++r) {
+      sm.row_recv[r] = acc;
+      const int* st = sm.start + (r + 1) * g.cols + 1;
+      acc += st[g.in_cols] - st[0];
+    }
+    sm.row_recv[g.in_rows] = acc;
+  }
+  __syncthreads();
+  return sm.row_recv[g.in_rows];
+}
+
 struct Receiver {
   int pos;     // its place in cand
   int rr, rb;  // its region row and column

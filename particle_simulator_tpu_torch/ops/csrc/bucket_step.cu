@@ -200,12 +200,20 @@ __global__ void __launch_bounds__(TILE_THREADS) bucket_step_kernel(
 // one visit) and a dead slot write nothing. The wrapper steps between two
 // buffers that hold the same bytes on every slot no step of the chunk
 // writes (the counterpart of the Pallas call's input/output aliasing, at
-// slot grain). Otherwise every tile is visited and every slot written.
+// slot grain). Otherwise every tile is visited and every slot written. The
+// COMPACT instance (the live-tile step) has a body and a launch bound of
+// its own (below).
 //
 // Named bucket_step_kernel_tiles so that a device trace's step launches
 // (every kernel whose name holds bucket_step_kernel) take in both step
 // designs; lookups of one of them by name compare whole identifiers.
 constexpr int P_OMAX = P_COUNT;  // the aux appends omax to the params vector
+
+// blocks of the live-tile step a multiprocessor holds at once: 48
+// registers a thread, where the every-tile and classic steps take 64 and
+// hold four (shared memory: the compacted stage of a 8 x 16 sub-tile of
+// cap-16 buckets, 35 KB a block, fits five)
+constexpr int LIVE_TILE_MIN_BLOCKS = 5;
 
 template <bool COMPACT>
 __global__ void __launch_bounds__(TILE_THREADS) bucket_step_kernel_tiles(
@@ -219,7 +227,7 @@ __global__ void __launch_bounds__(TILE_THREADS) bucket_step_kernel_tiles(
     int gy, int gx, int cap, int ty_rows, int n_chunks, int sub_r, int sub_b, int vec) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ StepScalars sc;
-  const int n_visits = COMPACT ? __ldg(sizes) : (gy / ty_rows) * n_chunks;
+  const int n_visits = (gy / ty_rows) * n_chunks;
   if ((int)blockIdx.y >= n_visits) return;
   if (threadIdx.x == 0) step_scalars(params, sc);
   __syncthreads();
@@ -240,23 +248,89 @@ __global__ void __launch_bounds__(TILE_THREADS) bucket_step_kernel_tiles(
   g.width = omax;
   const StageBuffers sm = stage_buffers(smem, g.rows, g.cols, cap);
 
-  for (int k = blockIdx.y; k < n_visits; k += gridDim.y) {
-    // tiles in their natural order without COMPACT: a walk that spreads
-    // live and dead tiles over the blocks in flight was measured slower
-    // (PERF.md), the copies stream best through neighbouring tiles
-    const int tile = COMPACT ? __ldg(order + k) : k;
+  for (int tile = blockIdx.y; tile < n_visits; tile += gridDim.y) {
+    // tiles in their natural order: a walk that spreads live and dead tiles
+    // over the blocks in flight was measured slower (PERF.md), the copies
+    // stream best through neighbouring tiles
     const bool live = __ldg(flags + tile) != 0;
     const int row = (tile / n_chunks) * ty_rows + sub_y * sub_r;
     const int col = (tile % n_chunks) * row_buckets + sub_x * sub_b;
-    if (!COMPACT) {
-      copy_dead_slots(x, y, vx, vy, ty, ox, oy, ovx, ovy, ((long)row * gx + col) * cap,
-                      (long)gx * cap, g.in_rows, g.in_cols * cap, cap, live ? omax : 0,
-                      vec != 0);
-    }
+    copy_dead_slots(x, y, vx, vy, ty, ox, oy, ovx, ovy, ((long)row * gx + col) * cap,
+                    (long)gx * cap, g.in_rows, g.in_cols * cap, cap, live ? omax : 0,
+                    vec != 0);
     if (!live) continue;
     g.row0 = row - 1;
     g.col0 = col - 1;
     const int n_recv = stage_region(x, y, ty, g, sm);
+    step_staged_receivers(sc, g, sm, n_recv, vx, vy, ox, oy, ovx, ovy);
+    __syncthreads();  // the stage is consumed before the next visit overwrites it
+  }
+}
+
+// The live-tile step (COMPACT): the every-tile step's walk over
+// order[0 .. sizes[0]), a block a sub-tile of a visit, with no pass-through.
+//
+// On the served 1M lattice, once the drag has spread it over every tile, a
+// sub-tile holds about one live slot a bucket: ~128 receivers for a block
+// of 256 threads, so half of a block's warps do pair math while it lives,
+// and none while it stages, where the one-item design read ty slot after
+// slot and then each live slot's x and y in turn, waiting on device memory
+// each time. So this instance
+// - stages with 16-byte loads where it can (stage_region_vec: cap a
+//   multiple of 4, aligned fields, omax at most 32), a bucket's loads in
+//   flight together;
+// - holds LIVE_TILE_MIN_BLOCKS blocks a multiprocessor, where the one-item
+//   design held four, so that more warps do pair math.
+// Resident blocks that walk the sub-tiles themselves with a double-buffered
+// stage (the next sub-tile brought in by cp.async, or by warps of their
+// own, while the current one is stepped) timed slower than this launch on
+// every served state (PERF.md): blocks the hardware schedules as slots free
+// up balance the uneven sub-tiles better than a walk that draws its next
+// item ahead, and the step beside a stage slowed by about what it hid.
+// The candidates, their order and each receiver's sum are stage_region's
+// and step_staged_receivers', so the step is the same to the bit.
+template <>
+__global__ void __launch_bounds__(TILE_THREADS, LIVE_TILE_MIN_BLOCKS)
+    bucket_step_kernel_tiles<true>(
+    const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
+    const float* __restrict__ vx, const float* __restrict__ vy,
+    const int32_t* __restrict__ ty, const float* __restrict__ params,
+    const int32_t* __restrict__ flags, const int32_t* __restrict__ order,
+    const int32_t* __restrict__ sizes,
+    uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
+    float* __restrict__ ovx, float* __restrict__ ovy,
+    int gy, int gx, int cap, int ty_rows, int n_chunks, int sub_r, int sub_b, int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ StepScalars sc;
+  const int n_visits = __ldg(sizes);
+  if ((int)blockIdx.y >= n_visits) return;
+  if (threadIdx.x == 0) step_scalars(params, sc);
+  __syncthreads();
+
+  const int omax = min(max((int)__ldg(params + P_OMAX), 0), cap);
+  const bool wide_loads = vec && omax <= 32;
+  const int row_buckets = gx / n_chunks;
+  const int subs_x = (row_buckets + sub_b - 1) / sub_b;
+  const int sub_y = blockIdx.x / subs_x, sub_x = blockIdx.x - sub_y * subs_x;
+  StageGeom g;
+  g.grid_base = 0;
+  g.gy = gy;
+  g.gx = gx;
+  g.cap = cap;
+  g.rows = sub_r + 2;
+  g.cols = sub_b + 2;
+  g.in_rows = min(sub_r, ty_rows - sub_y * sub_r);  // the tile's edge cuts the sub-tile
+  g.in_cols = min(sub_b, row_buckets - sub_x * sub_b);
+  g.width = omax;
+  const StageBuffers sm = stage_buffers(smem, g.rows, g.cols, cap);
+
+  for (int k = blockIdx.y; k < n_visits; k += gridDim.y) {
+    const int tile = __ldg(order + k);
+    if (__ldg(flags + tile) == 0) continue;  // the all-dead grid's one visit
+    g.row0 = (tile / n_chunks) * ty_rows + sub_y * sub_r - 1;
+    g.col0 = (tile % n_chunks) * row_buckets + sub_x * sub_b - 1;
+    const int n_recv = wide_loads ? stage_region_vec(x, y, ty, g, sm)
+                                  : stage_region(x, y, ty, g, sm);
     step_staged_receivers(sc, g, sm, n_recv, vx, vy, ox, oy, ovx, ovy);
     __syncthreads();  // the stage is consumed before the next visit overwrites it
   }
@@ -356,6 +430,28 @@ extern "C" int ps_bucket_step_tiles(
       (uint32_t*)ox, (uint32_t*)oy, (float*)ovx, (float*)ovy,
       gy, gx, cap, ty_rows, n_chunks, st.rows, st.cols, vec);
   return (int)cudaGetLastError();
+}
+
+// Blocks of the tile-scheduled step (compact = 1: the live-tile instance,
+// else the every-tile one) that a multiprocessor of the current device
+// holds at once, for tiles of ty_rows x row_buckets cap-slot buckets:
+// out[0] the blocks (the occupancy calculator's), out[1] the dynamic shared
+// memory a block (bytes)
+extern "C" int ps_bucket_tiles_occupancy(int ty_rows, int row_buckets, int cap, int compact,
+                                         void* out) {
+  SubTile st;
+  if (!pick_sub_tile(ty_rows, row_buckets, cap, st)) return (int)cudaErrorInvalidValue;
+  auto kernel = compact ? bucket_step_kernel_tiles<true> : bucket_step_kernel_tiles<false>;
+  cudaError_t err = allow_shared_memory(kernel, st.smem);
+  int blocks = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, TILE_THREADS, st.smem);
+  }
+  if (err != cudaSuccess) return (int)err;
+  int* o = (int*)out;
+  o[0] = blocks;
+  o[1] = (int)st.smem;
+  return 0;
 }
 
 // pairs per iteration of the tile-scheduled kernel's run loop, for the

@@ -16,10 +16,16 @@ all-pairs step on the 2,048-slot droplet, and ``phase_ext_kernels`` (the 1M
 user scene at its loaded state, omax 6: the classic, every-tile ``ext`` and
 live-tiles ``compact`` steps) plus the same three steps on the state four
 classic frames later (omax 8), the dest on the user scene, and the classic
-step and the dest on the editor's 1024x1024 lattice (a 512x512x16 grid).
+step and the dest on the editor's 1024x1024 lattice (a 512x512x16 grid),
+and the live-tile step on the benchmark's 1M lattice (``editor-lattice-1m``'s
+1024x1024x16 grid) after 300 and 900 frames served under a cursor drag.
 Every phase also holds each kernel against its plain version. A turn prints
 one JSON line of kernel times in ms; the card's ``nvidia-smi`` name and power
-limit come first. Exits non-zero when a turn fails.
+limit come first. Then two lines: whether the live-tile step's outputs on
+those states (and on the user scene's two) are the same bytes in every turn
+of both checkouts, and whether the SASS (``cuobjdump -sass``) of the classic,
+halo and both tile-scheduled step kernels is the same in both checkouts'
+libraries. Exits non-zero when a turn fails or the outputs differ.
 """
 
 from __future__ import annotations
@@ -29,9 +35,15 @@ import os
 import subprocess
 import sys
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
 TURN = r'''
+import hashlib
 import json
+import math
 import chip_smoke as cs
+from particle_simulator_tpu_torch.io.frame import Frame
 from particle_simulator_tpu_torch.engine.simulator import Simulator
 from particle_simulator_tpu_torch.ops import build
 from particle_simulator_tpu_torch.ops import bucket_cuda as bc
@@ -66,6 +78,38 @@ omax, pair = int(aux.params[-1]), bc.ext_pair(state)
 ms[f"classic_omax{omax}"] = cs.cuda_ms(lambda: bc.bucket_step_cuda(state, pv), reps)
 ms[f"ext_omax{omax}"] = cs.cuda_ms(lambda: bc.bucket_step_ext_cuda(pair, aux, False), reps)
 ms[f"compact_omax{omax}"] = cs.cuda_ms(lambda: bc.bucket_step_ext_cuda(pair, aux, True), reps)
+digest = {}
+
+
+def held(label, state, aux):
+    """the live-tile step's output on ``state``, as a digest of its bytes"""
+    out = bc.bucket_step_ext_cuda(bc.ext_pair(state), aux, True).cur
+    digest[label] = hashlib.sha256(b"".join(a.cpu().numpy().tobytes() for a in out)).hexdigest()
+
+
+held(f"compact_omax{omax}", state, aux)
+held(f"compact_omax{user['omax']}", sim.state, bucket.ext_step_aux(sim.state, pv, sim._lane_chunks, 8))
+# the benchmark's 1M lattice (a 1024x1024x16 grid) served under a cursor drag:
+# the live-tile step as the served cell runs it, once the lattice has spread
+drag = Simulator(device=dev)
+drag.load_frame(cs.user_scene(1024))
+rows = max(1, 1 << max(0, int(drag.meta_record["gpu_threads_per_block_log2"]) - 4))
+served = 0
+for target in (300, 900):
+    while served < target:
+        angle = 2 * math.pi * served / 140
+        edit = Frame.from_metadata(drag.meta_record.copy())
+        edit.metadata.cursor_pos = (0.5 + 0.25 * math.cos(angle), 0.5 + 0.25 * math.sin(angle))
+        edit.metadata.cursor_size = 0.05
+        drag.update_metadata(edit)
+        drag.frame_async()
+        served += 1
+    aux = bucket.ext_step_aux(drag.state, drag._pvec, drag._lane_chunks, rows)
+    pair = bc.ext_pair(drag.state)
+    label = f"compact_drag{target}_omax{int(aux.params[-1])}"
+    ms[label] = cs.cuda_ms(lambda: bc.bucket_step_ext_cuda(pair, aux, True), reps)
+    held(label, drag.state, aux)
+ms["digest"] = digest
 # the lattice the headless editor sends (1024x1024 at 1.1 r0 over 0.6 of the box)
 lat = Simulator(device=dev)
 lat.load_frame(_scene(1024, 1024, distance_factor=1.1, speed=0.0, box_fill=0.6, dt=1e-14))
@@ -85,6 +129,7 @@ def main(argv: list[str]) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
+    digests = {}
     for label, root in (("A", other), ("B", here), ("B", here), ("A", other)):
         proc = subprocess.run([sys.executable, "-c", TURN], cwd=root, capture_output=True,
                               text=True)
@@ -92,9 +137,42 @@ def main(argv: list[str]) -> int:
         if proc.returncode or not lines:
             print(f"turn {label} ({root}) failed:\n{proc.stderr[-3000:]}", file=sys.stderr)
             return 1
-        print(json.dumps({"checkout": label, "root": root,
-                          "ms": json.loads(lines[0][len("RESULT "):])}), flush=True)
-    return 0
+        ms = json.loads(lines[0][len("RESULT "):])
+        digests.setdefault(label, []).append(ms.pop("digest"))
+        print(json.dumps({"checkout": label, "root": root, "ms": ms}), flush=True)
+    # the live-tile step's outputs, the same bytes in every turn of both checkouts
+    same = all(d == digests["A"][0] for turns in digests.values() for d in turns)
+    print(json.dumps({"live_tile_step_bit_identical": same, "states": sorted(digests["A"][0])}),
+          flush=True)
+    sass = {root: sass_functions(root) for root in (other, here)}
+    print(json.dumps({"sass_unchanged": {k: sass[other].get(k) == sass[here].get(k)
+                                         for k in SASS_KERNELS}}), flush=True)
+    return 0 if same else 1
+
+
+# kernels whose SASS the comparison reads in both checkouts' libraries
+SASS_KERNELS = ("bucket_step_kernel<0>", "bucket_step_kernel<1>", "bucket_step_kernel_tiles<0>",
+                "bucket_step_kernel_tiles<1>")
+
+
+def sass_functions(root: str) -> dict:
+    """kernel name -> its SASS (``cuobjdump -sass``) in the library a turn
+    built under ``root``"""
+    import re
+
+    import chip_smoke
+    from particle_simulator_tpu_torch.ops import build
+
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    lib = os.path.join(root, "particle_simulator_tpu_torch", "build", build.LIB_NAME)
+    text = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for func in re.split(r"\n\s*Function : ", text)[1:]:
+        name, body = func.split("\n", 1)
+        # the instructions and their encodings, without the listing's column padding
+        out[chip_smoke.kernel_name(name.strip())] = " ".join(body.split(".....")[0].split())
+    return out
 
 
 if __name__ == "__main__":

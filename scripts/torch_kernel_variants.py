@@ -25,7 +25,8 @@ card's ``nvidia-smi`` name and power limit, then one JSON line a variant:
   also with 4 and 16 blocks an SM in the launch instead of the wrapper's
   ``TILE_BLOCKS_PER_SM``. ``stage_only`` switches the receiver loop
   off (its result is wrong on purpose): what the stage and the pass-through
-  cost alone;
+  cost alone; ``live_tile_*`` undo one of the live-tile instance's two
+  choices (five blocks an SM, the 16-byte stage);
 - ``step``: the classic and halo step (``ps_bucket_step``) on the dense
   512x256x8 scene, its four halo-padded shards, the 1M user scene and the
   editor's 1024x1024 lattice (512x512x16), each held bit for bit against the
@@ -68,8 +69,8 @@ def tiles_shape(threads=256, rows=8, cols=16, unroll=2, extra=()):
             *extra]
 
 
-TILE_ORDER = "const int tile = COMPACT ? __ldg(order + k) : k;"
-TILE_BOUND = "__launch_bounds__(TILE_THREADS) bucket_step_kernel_tiles("
+TILE_ORDER = "for (int tile = blockIdx.y; tile < n_visits; tile += gridDim.y) {"
+TILE_BOUND = "__launch_bounds__(TILE_THREADS) bucket_step_kernel_tiles("  # the every-tile instance
 # the pass-through's 16-byte copies with streaming (evict-first) loads and stores
 COPIES = [(f"*reinterpret_cast<{t}*>({o} + i) = *reinterpret_cast<const {t}*>({i} + i);",
            f"__stcs(reinterpret_cast<{t}*>({o} + i), "
@@ -78,10 +79,15 @@ COPIES = [(f"*reinterpret_cast<{t}*>({o} + i) = *reinterpret_cast<const {t}*>({i
                           ("float4", "ovx", "vx"), ("float4", "ovy", "vy"))]
 
 
+def tile_order(expr):
+    """The every-tile walk visiting tile ``expr`` (of visit k) in turn k."""
+    return [(TILE_ORDER, "for (int k = blockIdx.y; k < n_visits; k += gridDim.y) {\n"
+                         f"    const int tile = {expr};")]
+
+
 def tile_streams(n):
     """The every-tile walk as ``n`` interleaved streams of neighbouring tiles."""
-    return [(TILE_ORDER, f"const int tile = COMPACT ? __ldg(order + k) : (n_visits % {n} ? k : "
-                         f"(k % {n}) * (n_visits / {n}) + k / {n});")]
+    return tile_order(f"n_visits % {n} ? k : (k % {n}) * (n_visits / {n}) + k / {n}")
 
 
 VARIANTS = {
@@ -104,12 +110,16 @@ VARIANTS = {
         "6_blocks_an_sm": tiles_shape(extra=[(TILE_BOUND, TILE_BOUND.replace(")", ", 6)", 1))]),
         "stage_only": tiles_shape(extra=[("r < n_recv; r += blockDim.x",
                                           "r < n_recv && g.gy < 0; r += blockDim.x")]),
-        "tile_order_stride_633": tiles_shape(extra=[
-            (TILE_ORDER, "const int tile = COMPACT ? __ldg(order + k) : "
-                         "(n_visits == 1024 ? (int)((long)k * 633 % 1024) : k);")]),
+        "tile_order_stride_633": tiles_shape(extra=tile_order(
+            "n_visits == 1024 ? (int)((long)k * 633 % 1024) : k")),
         "tile_streams_4": tiles_shape(extra=tile_streams(4)),
         "tile_streams_16": tiles_shape(extra=tile_streams(16)),
         "streaming_copies": tiles_shape(extra=COPIES),
+        # the live-tile instance at the one-item design's four blocks an SM
+        # (64 registers), and with the one-item design's slot-by-slot stage
+        "live_tile_4_blocks_an_sm": [("LIVE_TILE_MIN_BLOCKS = 5;", "LIVE_TILE_MIN_BLOCKS = 4;")],
+        "live_tile_scalar_stage": [("const bool wide_loads = vec && omax <= 32;",
+                                    "const bool wide_loads = false;")],
     },
 }
 

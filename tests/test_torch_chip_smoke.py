@@ -267,6 +267,41 @@ def test_ext_geometry_sweep_runs_through_the_plain_versions():
     assert any(ln["live_tile_share"] < 1 for ln in lines) and all(ln["live"] for ln in lines)
 
 
+def test_live_tile_sweep_runs_through_the_plain_versions():
+    """Phase 25's small grids, rehearsed on CPU tensors (the wrappers run
+    the plain versions): every case held, and between them omax below cap
+    (the 16-byte stage's case on the card), 4-, 8- and 16-row tiles, a tile
+    one bucket wide and the all-dead grid."""
+    lines = chip_smoke.live_tile_sweep("cpu")
+    assert [tuple(ln["grid"]) for ln in lines] == [g for g, *_ in chip_smoke.LIVE_TILE_GEOMETRIES]
+    assert {ln["ty_rows"] for ln in lines} == {4, 8, 16}
+    assert all(ln["omax"] < ln["grid"][2] for ln in lines)
+    assert any(ln["grid"][1] == ln["lane_chunks"] for ln in lines)
+    assert [ln["live"] for ln in lines].count(0) == 1
+
+
+def test_drag_edit_circles_the_centre():
+    """Phase 25's drag: a metadata-only frame a served frame, the cursor on
+    the circle of a quarter of the box about its centre, a turn every
+    ``DRAG_TURN_FRAMES`` frames, the particles untouched."""
+    from particle_simulator_tpu_torch.engine.simulator import Simulator
+    from particle_simulator_tpu_torch.physics import bucket
+    from particle_simulator_tpu_torch.scenes.library import _scene
+
+    sim = Simulator(bucket.GridConfig(4, 4, 8), device="cpu")
+    sim.load_frame(_scene(8, 8, distance_factor=1.1, speed=1.0, box_fill=0.5))
+    before = sim.state.x.clone()
+    seen = []
+    for frame in (0, chip_smoke.DRAG_TURN_FRAMES // 4, chip_smoke.DRAG_TURN_FRAMES):
+        edit = chip_smoke.drag_edit(sim, frame)
+        assert edit.particle_count == 0
+        sim.update_metadata(edit)
+        seen.append(tuple(float(v) for v in sim.meta_record["cursor_pos"]))
+        assert float(sim.meta_record["cursor_size"]) == pytest.approx(chip_smoke.DRAG_SIZE)
+    np.testing.assert_allclose(seen, [(0.75, 0.5), (0.5, 0.75), (0.75, 0.5)], atol=1e-6)
+    assert torch.equal(sim.state.x, before)
+
+
 @pytest.mark.parametrize("kernel, mangled", [
     ("bucket_step_kernel<0>",
      "_ZN47_GLOBAL__N__9040dbc3_14_bucket_step_cu_13312ab318bucket_step_kernelILb0EEEvPKjS2_"

@@ -368,6 +368,29 @@ def test_the_scene_picks_the_live_tile_step_on_a_sparse_scene():
     assert live == classic[0]
 
 
+@pytest.mark.parametrize("device, launches", [("cpu", 0), ("cuda", 3 * 6)])
+def test_live_tile_launches_are_counted_where_the_kernel_runs(monkeypatch, device, launches):
+    """``step.live_tile_launches`` adds a live-tile frame's steps (one
+    kernel launch each) where the state is on the card, beside
+    ``frame.live_tiles``; a CPU Simulator's live-tile frames run the plain
+    versions and launch nothing. The card's runner is stood in for, so that
+    the count is read here."""
+    monkeypatch.setattr(profiling, "RECORDER", profiling.Recorder())
+    sim = Simulator(bucket.GridConfig(8, 4, 8), device="cpu")
+    sim.load_frame(sparse_scene())
+    assert sim._lane_chunks == 2 and sim.params.steps_per_frame == 6
+    if device == "cuda":
+        sim.run_device = torch.device("cuda")
+        monkeypatch.setattr(simulator, "run_frame_bucket_cuda", lambda state, *a, **k: state)
+    with profiling.recording():
+        for _ in range(3):
+            sim.frame_async()
+    counters = profiling.export()["counters"]
+    assert sim.active_kernel == f"bucket-compact-{'cuda' if device == 'cuda' else 'torch-cpu'}"
+    assert counters["frame.live_tiles"] == 3
+    assert counters.get("step.live_tile_launches", 0) == launches
+
+
 # the values PS_EXT_IO took before the scene alone picked the runner
 OLD_EXT_IO = ("compact", "auto", "on", "1", "nocompact", "off")
 

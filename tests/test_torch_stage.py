@@ -1,5 +1,5 @@
-"""What the redesigned classic/halo step and dest kernels rely on, held on
-the CPU by Python models of their block-level algorithms.
+"""What the redesigned classic/halo step, live-tile step and dest kernels
+rely on, held on the CPU by Python models of their block-level algorithms.
 
 The CUDA kernels (``ops/csrc/bucket_step.cu:bucket_step_kernel<HALO>`` on
 ``bucket_stage.cuh``, ``ops/csrc/bucket_dest.cu``) run only on the card,
@@ -24,7 +24,13 @@ arithmetic and is held against the plain versions and the JAX package:
   Contract: integer ids equal to ``move_dest_direct`` /
   ``move_dest_direct_halo`` and to JAX's ``move_dest_pallas`` /
   ``move_dest_pallas_halo`` (interpret mode), every slot written exactly
-  once, on scenes whose move drops particles by overflow and by drift.
+  once, on scenes whose move drops particles by overflow and by drift;
+- the live-tile step (``bucket_step_kernel_tiles<true>``): a block a
+  sub-tile of a visit, the blocks of one sub-tile walking the visits of
+  ``order`` below ``sizes[0]``, each region staged 16 bytes at a time where
+  cap and omax allow. Contract: every sub-tile of every live tile visited
+  once, every live slot written once and no other slot, and the stepped
+  slots equal to ``bucket_step_ext`` bit for bit.
 """
 
 import numpy as np
@@ -468,3 +474,152 @@ def test_target_centred_halo_dest_equals_the_plain_dest_and_jax(case, shards, su
         b, r = pid // cap, pid % cap  # the padded lane numbering -> the interior's
         mapped = np.where(pid >= 0, ((b // px) * lx + b % px - 1) * cap + r, -1)
         np.testing.assert_array_equal(got[0], mapped)
+
+
+# ---------------------------------------------------------------------------
+# the live-tile step: its walk over the visits and its 16-byte stage
+# ---------------------------------------------------------------------------
+
+STAGE_BUDGET = 40 * 1024  # bucket_step.cu:pick_sub_tile's shared-memory budget
+
+
+def stage_bytes(rows: int, cols: int, cap: int) -> int:
+    """``bucket_stage.cuh:stage_bytes``: cand, info, start, row prefix and
+    the scan's scratch of a rows x cols region."""
+    nb = rows * cols
+    return nb * cap * 12 + (nb + 1 + rows + 32) * 4
+
+
+def pick_sub_tile(rows: int, cols: int, cap: int) -> tuple[int, int]:
+    """``bucket_step.cu:pick_sub_tile``: at most SUB of a rows x cols tile,
+    fewer columns until the staged region fits the budget."""
+    r, c = min(rows, SUB[0]), min(cols, SUB[1])
+    while c > 1 and stage_bytes(r + 2, c + 2, cap) > STAGE_BUDGET:
+        c -= 1
+    return r, c
+
+
+def live_tile_model(state: ParticleState, aux: bucket.ExtStepAux, walkers: int):
+    """``bucket_step_kernel_tiles<true>`` block by block: blocks
+    (sub-tile, walker) of a (tile_x, walkers) launch, walker w taking visits
+    w, w + walkers, ... below sizes[0]; a dead tile is skipped; the region
+    staged as ``stage_region_vec`` does where cap is a multiple of 4 and
+    omax at most 32 (16-byte groups of ty, a live mask, x and y of the live
+    groups), else as ``stage_region``; the receivers are the interior's live
+    slots. Returns the (tile, sub-tile) visits, how often each slot was
+    written, and each receiver's candidates in the step's order."""
+    gy, gx, cap = state.ty.shape
+    ty = state.ty.numpy().reshape(-1)
+    omax = int(aux.params[-1])
+    chunks, ty_rows = aux.lane_chunks, aux.ty_rows
+    row_buckets = gx // chunks
+    sub_r, sub_b = pick_sub_tile(ty_rows, row_buckets, cap)
+    rows, cols = sub_r + 2, sub_b + 2
+    assert rows * cols <= 256, "a thread per staged bucket"
+    subs_x = -(-row_buckets // sub_b)
+    tile_x = -(-ty_rows // sub_r) * subs_x
+    wide = cap % 4 == 0 and omax <= 32
+    n_visits = int(aux.sizes[0])
+    order, flags = aux.order.numpy(), aux.flags.numpy()
+    visits, writes, runs = {}, np.zeros(ty.size, np.int64), {}
+
+    def bucket_live(base):
+        if not wide:
+            return [s for s in range(omax) if ty[base + s] >= 0]
+        live = 0
+        for s in range(0, omax, 4):  # one 16-byte load of ty
+            assert s + 4 <= cap, "a load past the bucket"
+            for e in range(4):
+                live |= int(ty[base + s + e] >= 0) << (s + e)
+        live &= (1 << omax) - 1
+        slots = [s for s in range(32) if live >> s & 1]
+        for s in range(0, 32, 4):  # x and y of a group with a live slot
+            if live >> s & 0xF:
+                assert s + 4 <= cap
+        return slots
+
+    for bx in range(tile_x):
+        sub_y, sub_x = divmod(bx, subs_x)
+        in_rows = min(sub_r, ty_rows - sub_y * sub_r)
+        in_cols = min(sub_b, row_buckets - sub_x * sub_b)
+        for w in range(walkers):
+            for k in range(w, n_visits, walkers):
+                tile = int(order[k])
+                if not flags[tile]:
+                    continue
+                visits[tile, bx] = visits.get((tile, bx), 0) + 1
+                row0 = (tile // chunks) * ty_rows + sub_y * sub_r - 1
+                col0 = (tile % chunks) * row_buckets + sub_x * sub_b - 1
+                cand, start = [], [0]
+                for rr in range(rows):
+                    for rb in range(cols):
+                        by, bx_ = row0 + rr, col0 + rb
+                        if 0 <= by < gy and 0 <= bx_ < gx:
+                            base = (by * gx + bx_) * cap
+                            cand.extend(base + s for s in bucket_live(base))
+                        start.append(len(cand))
+                for r in range(1, in_rows + 1):
+                    for c in range(1, in_cols + 1):
+                        b = r * cols + c
+                        for pos in range(start[b], start[b + 1]):
+                            writes[cand[pos]] += 1
+                            runs[cand[pos]] = (cand[start[b - cols - 1]:start[b - cols + 2]]
+                                               + cand[start[b - 1]:pos] + cand[pos + 1:start[b + 2]]
+                                               + cand[start[b + cols - 1]:start[b + cols + 2]])
+    return visits, writes.reshape(state.ty.shape), runs, (sub_r, sub_b, tile_x)
+
+
+def live_tile_state(shape, seed, width=None) -> ParticleState:
+    """A random half-live grid, live slots only below ``width`` of each
+    bucket (so that omax is small, as on a served lattice), one corner
+    dead."""
+    state = random_state(shape, seed)
+    if width is not None:
+        state.ty[..., width:] = -1
+    return state
+
+
+# (grid, lane chunks, rows a tile asked for, width of the live slots, walkers)
+LIVE_TILE_CASES = {
+    "cap6-scalar-stage-one-walker": ((16, 32, 6), 2, 8, None, 1),
+    "cap8-omax5-fewer-walkers": ((16, 32, 8), 2, 8, 5, 3),
+    "cap12-more-walkers": ((8, 64, 12), 4, 8, None, 100),
+    "cap16-4-row-tiles": ((32, 64, 16), 4, 4, 7, 5),
+    "cap16-16-row-tiles": ((32, 32, 16), 2, 16, 8, 2),
+    "cap16-8-row-tiles-8-chunks": ((16, 128, 16), 8, 8, 8, 13),
+    "cap64-omax-over-32-ragged": ((32, 16, 64), 1, 16, None, 1),
+    "cap64-omax20-wide-ragged": ((16, 16, 64), 1, 8, 20, 4),
+    "one-bucket-tiles": ((4, 4, 16), 4, 4, 6, 16),
+    "all-dead": ((16, 32, 16), 2, 8, 0, 7),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LIVE_TILE_CASES))
+def test_live_tile_walk_steps_every_live_slot_once(case):
+    """The live-tile step's walk visits every sub-tile of every live tile
+    once (the all-dead grid: its one visit, and nothing written), writes
+    every live slot once and no other slot, and each receiver's candidates
+    are the classic step's order with the tombstones left out, so the
+    stepped slots equal the plain ext step's bit for bit."""
+    shape, chunks, rows, width, walkers = LIVE_TILE_CASES[case]
+    state = live_tile_state(shape, seed=len(case), width=width)
+    pv = step_params()
+    aux = bucket.ext_step_aux(state, pv, chunks, rows)
+    visits, writes, runs, (sub_r, sub_b, tile_x) = live_tile_model(state, aux, walkers)
+    live_tiles = set(np.flatnonzero(aux.flags.numpy()).tolist())
+    if case == "all-dead":
+        assert not live_tiles and int(aux.sizes[0]) == 1
+    if case.endswith("ragged"):
+        assert (shape[1] // chunks) % sub_b, "the last sub-tile of a tile is cut"
+    assert visits == {(t, s): 1 for t in live_tiles for s in range(tile_x)}
+    live = (state.ty >= 0).numpy()
+    np.testing.assert_array_equal(writes, live.astype(np.int64))
+    receivers = sorted(runs)
+    if not receivers:
+        return
+    fx, fy = sequential_pair_sum(state, pv, receivers, [runs[r] for r in receivers])
+    stepped = mie.leapfrog_apply(*(a.reshape(-1) for a in state), fx, fy, pv)
+    plain = bucket.bucket_step_ext(state, aux, compact=True)
+    idx = torch.as_tensor(receivers)
+    for name, got, want in zip(ParticleState._fields, stepped, plain[:4]):
+        assert torch.equal(got[idx], want.reshape(-1)[idx]), f"{case}: {name}"
