@@ -204,8 +204,20 @@ exits non-zero without printing a result):
     to the live-tile launches and to its frames' steps; then the small
     grids of ``LIVE_TILE_GEOMETRIES`` (16-byte stage, 4- 8- and 16-row and
     one-bucket tiles, cap 64 with omax 20, the all-dead grid) against the
-    classic and plain steps. ``python3 chip_smoke.py --live-tile`` runs
-    phases 1, 2 and 25 alone (~60 s of command).
+    classic and plain steps. The frame's tile kernel (row 10,
+    ``csrc/bucket_tiles.cu``): on each of those three states ``ps_tile_aux``
+    bit for bit against ``ext_step_aux``, alone and with its retire against
+    ``tile_retire``, timed beside its byte bounds; the served frames
+    of ``LIVE_TILE_HELD_FRAMES`` (the first after the load, the two after it
+    and later pairs, each stepping into the buffer the frame before kept)
+    bit for bit against the classic frame, their given states unchanged;
+    the drag's ``tile_aux`` and ``tile_retire`` launches (an aux at every
+    run's entry but a frame's first, which takes the aux kept with the
+    buffer, but in the first frame; a retire at every run's entry but the
+    first and but the second of the first frame); the kernel on small grids
+    (``tile_kernels_sweep``).
+    ``python3 chip_smoke.py --live-tile`` runs phases 1, 2 and 25 alone
+    (~60 s of command).
 
 Every child process (the headless editors of phases 4, 11 and 20, the
 web editor and the daemons of phase 21) prints the modules of jax or of the
@@ -925,7 +937,7 @@ def phase_slice(device, lattice: str, frames: int, workdir: str, mesh=None,
         runner, path = "sharded", HALO_KERNELS
     else:
         step = "step_compact" if sim._lane_chunks > 1 else "step"
-        runner, path = STEP_RUNNERS[step], (step, "dest", "place")
+        runner, path = STEP_RUNNERS[step], (*STEP_PATHS[step], "dest", "place")
     if sim.active_kernel != f"{runner}-{'cuda' if device.startswith('cuda') else 'torch-cpu'}":
         raise AssertionError(f"frames ran through {sim.active_kernel}")
     counts = []
@@ -1650,6 +1662,114 @@ def phase_ext_frame(device, scene, frames: int, timed: int):
     return line
 
 
+def same_aux(got, want, label: str) -> None:
+    """Raise unless two ``ExtStepAux`` are the same to the bit."""
+    import torch
+
+    for name in ("params", "flags", "order", "sizes", "bucket_max"):
+        a, b = getattr(got, name), getattr(want, name)
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"{label}: the tile aux's {name} differs")
+    if (got.ty_rows, got.lane_chunks) != (want.ty_rows, want.lane_chunks):
+        raise AssertionError(f"{label}: the tile aux's tiling differs")
+
+
+def tile_aux_bound(ty, old=None) -> dict:
+    """The least time of one ``ps_tile_aux``: ty read once and each
+    bucket's largest live slot + 1 written; with the old aux ``old`` (the
+    retire), also its ``bucket_max`` read on the tiles live under it and 16
+    bytes written on each slot dead in ty below it."""
+    import torch
+
+    nbytes = 4 * ty.numel() + 4 * ty[..., 0].numel()
+    if old is not None:
+        from particle_simulator_tpu_torch.physics import bucket
+
+        slot = torch.arange(ty.shape[-1], device=ty.device)
+        live_tiles = bucket._tile_slots(old.flags != 0, old, ty.shape)
+        nbytes += 4 * int(live_tiles.sum()) + 16 * int(
+            ((slot < old.bucket_max[..., None]) & (ty < 0)).sum())
+    return bound(nbytes)
+
+
+def tile_kernels_line(state, pv, chunks: int, rows: int, reps: int) -> dict:
+    """The live-tile frame's tile kernel on one state: ``ps_tile_aux``
+    against ``ext_step_aux`` bit for bit, on the state and on the rebucket's
+    output after one more step, there with the retire of the buffer the
+    step wrote, against ``tile_retire``; the times of both beside their
+    byte bounds, and the PyTorch aux's time."""
+    import torch
+
+    from particle_simulator_tpu_torch.ops import bucket_cuda as bc
+    from particle_simulator_tpu_torch.physics import bucket
+
+    aux = bc.ext_step_aux_cuda(state, pv, chunks, rows)
+    same_aux(aux, bucket.ext_step_aux(state, pv, chunks, rows), "ps_tile_aux")
+    written = bc.bucket_step_ext_cuda(bc.ext_pair(state), aux, True).cur
+    moved = bc.bucket_move_cuda(written)
+    got, want = (type(written)(*(a.clone() for a in written[:4]), moved.ty) for _ in range(2))
+    retire = (got, aux)
+    same_aux(bc.ext_step_aux_cuda(moved, pv, chunks, rows, retire),
+             bucket.ext_step_aux(moved, pv, chunks, rows), "ps_tile_aux with the retire")
+    bucket.tile_retire(want, moved.ty, aux)
+    same_state(got, want, "ps_tile_aux's retire")
+    dead = moved.ty < 0
+    if not all(torch.equal(a[dead], b[dead]) for a, b in zip(got[:4], moved[:4])):
+        raise AssertionError("the retired buffer differs from the rebucket's output on a "
+                             "dead slot")
+    return {"aux_ms": cuda_ms(lambda: bc.ext_step_aux_cuda(state, pv, chunks, rows), reps),
+            "aux_bound": tile_aux_bound(state.ty),
+            "aux_plain_ms": cuda_ms(lambda: bucket.ext_step_aux(state, pv, chunks, rows), reps),
+            "aux_retire_ms": cuda_ms(
+                lambda: bc.ext_step_aux_cuda(moved, pv, chunks, rows, retire), reps),
+            "aux_retire_bound": tile_aux_bound(moved.ty, aux),
+            "retired_slots": int(((state.ty >= 0) & (moved.ty < 0)).sum())}
+
+
+def tile_kernels_sweep(device) -> list:
+    """``ps_tile_aux`` and its retire against their plain versions on small
+    grids: random half-live ones of several caps (16-byte and scalar loads)
+    and tilings, one with 2,048 one-row tiles (the partition in two chunks
+    of the block), single live tiles and the all-dead grid; the retire
+    against the ty of another random grid."""
+    import torch
+
+    from particle_simulator_tpu_torch.engine.state import ParticleState, SimParams
+    from particle_simulator_tpu_torch.io.frame import default_metadata
+    from particle_simulator_tpu_torch.ops import bucket_cuda as bc
+    from particle_simulator_tpu_torch.physics import bucket
+
+    pv = SimParams.from_record(default_metadata()).vector(device)
+    lines = []
+    cases = [(shape, chunks, rows, share) for shape, chunks, rows, share in (
+        ((16, 32, 16), 2, 8, 0.5), ((16, 64, 16), 4, 4, 0.2), ((32, 16, 12), 1, 16, 0.5),
+        ((16, 32, 6), 8, 8, 0.3), ((1024, 4, 2), 2, 1, 0.3), ((16, 32, 16), 2, 8, 0.0),
+        ((16, 32, 16), 4, 8, -1), ((1024, 4, 2), 2, 1, -1))]
+    for seed, (shape, chunks, rows, share) in enumerate(cases):
+        rng = np.random.default_rng(seed)
+        ty = np.where(rng.random(shape) < share, 0, -1).astype(np.int32)
+        ty[: shape[0] // 2, : shape[1] // 3] = -1  # dead tiles among the live
+        if share < 0:  # one live slot, in the last tile
+            ty[-1, -1, 1] = 0
+        new_ty = np.where(rng.random(shape) < 0.4, 0, -1).astype(np.int32)
+        fields = [torch.from_numpy(rng.integers(-2**31, 2**31 - 1, shape, dtype=np.int32))
+                  for _ in range(2)]
+        fields += [torch.from_numpy(rng.normal(0, 50, shape).astype(np.float32)) for _ in range(2)]
+        old = ParticleState(*(a.to(device) for a in (*fields, torch.from_numpy(ty))))
+        aux = bc.ext_step_aux_cuda(old, pv, chunks, rows)
+        same_aux(aux, bucket.ext_step_aux(old, pv, chunks, rows), f"{shape} aux")
+        new = ParticleState(*old[:4], torch.from_numpy(new_ty).to(device))
+        got, want = (ParticleState(*(a.clone() for a in new[:4]), new.ty) for _ in range(2))
+        same_aux(bc.ext_step_aux_cuda(new, pv, chunks, rows, (got, aux)),
+                 bucket.ext_step_aux(new, pv, chunks, rows), f"{shape} aux with the retire")
+        bucket.tile_retire(want, new.ty, aux)
+        same_state(got, want, f"{shape} retire")
+        lines.append({"grid": list(shape), "lane_chunks": chunks, "ty_rows": aux.ty_rows,
+                      "tiles": int(aux.flags.numel()), "live_tiles": int(aux.flags.sum()),
+                      "omax": int(aux.params[-1])})
+    return lines
+
+
 # phase 25: the live-tile step (row 5) as it serves the 1M lattice
 # (grid, lane chunks, rows a tile asked for, width of the live slots in a
 # bucket): the live-tile step's 16-byte stage where omax is small beside
@@ -1669,6 +1789,10 @@ LIVE_TILE_GEOMETRIES = (
 # after these frames (the lattice has spread over ~half of its tiles after
 # 300 and over all of them after 900)
 LIVE_TILE_DRAG_FRAMES = (300, 900)
+# served frames of the drag held bit for bit against the classic frame: the
+# first after the load (which copies the given state), the frames after it
+# (each steps into the buffer the one before kept), and later ones
+LIVE_TILE_HELD_FRAMES = (0, 1, 2, 298, 299, 898, 899)
 DRAG_RADIUS, DRAG_TURN_FRAMES, DRAG_SIZE = 0.25, 140, 0.05
 
 
@@ -1766,6 +1890,7 @@ def phase_live_tile(device, reps: int, sass: dict) -> dict:
     from particle_simulator_tpu_torch.engine.simulator import Simulator
     from particle_simulator_tpu_torch.ops import bucket_cuda as bc
     from particle_simulator_tpu_torch.ops import build
+    from particle_simulator_tpu_torch.physics import bucket
     from particle_simulator_tpu_torch.utils import profiling
 
     sim = Simulator(device=device)
@@ -1781,34 +1906,61 @@ def phase_live_tile(device, reps: int, sass: dict) -> dict:
         if rc:
             raise AssertionError(f"ps_bucket_tiles_occupancy failed with cudaError_t {rc}")
         occupancy[name] = {**ptxas.get(name, {}), "blocks_per_sm": out[0], "smem_bytes": out[1]}
-    states = {"loaded": live_tile_state_line(sim.state, pv, chunks, rows, reps, sass)}
+    def state_line(state, pv):
+        return {**live_tile_state_line(state, pv, chunks, rows, reps, sass),
+                "tile_kernels": tile_kernels_line(state, pv, chunks, rows, reps)}
+
+    states = {"loaded": state_line(sim.state, pv)}
     real, profiling.RECORDER = profiling.RECORDER, profiling.Recorder()
-    launched = served = 0  # the drag's frames' launches, not the holds' and timings'
+    served = 0  # the drag's frames' launches, not the holds' and timings'
+    launched = dict.fromkeys(("step_compact", "tile_aux", "tile_retire"), 0)
+    held = []  # served frames held against the classic frame
     try:
         with profiling.recording():
             for target in LIVE_TILE_DRAG_FRAMES:
-                before = bc.LAUNCHES["step_compact"]
+                before = dict(bc.LAUNCHES)
                 while served < target:
                     sim.update_metadata(drag_edit(sim, served))
+                    given = sim.state
+                    ref = (type(given)(*(a.clone() for a in given))
+                           if served in LIVE_TILE_HELD_FRAMES else None)
                     sim.frame_async()
+                    if ref is not None:
+                        steps, every = sim.params.steps_per_frame, sim.grid.move_every
+                        launches = dict(bc.LAUNCHES)
+                        same_state(sim.state, bc.run_frame_bucket_cuda(ref, sim._pvec, steps,
+                                                                       every),
+                                   f"served frame {served} against the classic frame")
+                        same_state(given, ref, f"the state served frame {served} was given")
+                        bc.LAUNCHES.update(launches)
+                        held.append(served)
                     served += 1
-                launched += bc.LAUNCHES["step_compact"] - before
-                states[f"after {target} frames"] = live_tile_state_line(
-                    sim.state, sim._pvec, chunks, rows, reps, sass)
+                for k in launched:
+                    launched[k] += bc.LAUNCHES[k] - before[k]
+                states[f"after {target} frames"] = state_line(sim.state, sim._pvec)
         counted = profiling.RECORDER.counters.get("step.live_tile_launches", 0)
     finally:
         profiling.RECORDER = real
     if sim.active_kernel != "bucket-compact-cuda":
         raise AssertionError(f"the drag ran through {sim.active_kernel}")
     steps = served * sim.params.steps_per_frame
-    if not counted == launched == steps:
+    if not counted == launched["step_compact"] == steps:
         raise AssertionError(f"step.live_tile_launches {counted}, launches {launched}, "
                              f"steps {steps}")
+    # an aux at every run's entry but the first of a frame that finds the
+    # one before kept (all but the first after the load), a retire at every
+    # run's entry but the first and but the second of that first frame
+    runs = len(bucket.frame_runs(sim.params.steps_per_frame, sim.grid.move_every))
+    if (launched["tile_aux"], launched["tile_retire"]) != ((runs - 1) * served + 1,
+                                                          (runs - 1) * served - 1):
+        raise AssertionError(f"tile kernel launches {launched} over {served} frames of "
+                             f"{runs} runs")
     line = {"grid": [gy, gx, cap], "lane_chunks": chunks, "ty_rows": rows, "frames": served,
-            "step_live_tile_launches": counted, "launches": launched, "kernels": occupancy,
-            "states": states}
+            "step_live_tile_launches": counted, "launches": launched,
+            "frames_held_against_classic": held, "kernels": occupancy, "states": states}
     print("live-tile step: " + json.dumps(line), flush=True)
     print("live-tile geometries: " + json.dumps(live_tile_sweep(device)), flush=True)
+    print("tile kernels: " + json.dumps(tile_kernels_sweep(device)), flush=True)
     return line
 
 
@@ -1945,6 +2097,9 @@ def script_module(name: str):
 
 # a one-device frame's step kernel (its LAUNCHES key) -> the Simulator's runner
 STEP_RUNNERS = {"step": "bucket", "step_compact": "bucket-compact"}
+# ... -> the kernels its frames launch beside the rebucket's (the live-tile
+# frame's tile aux and its retires)
+STEP_PATHS = {"step": ("step",), "step_compact": ("step_compact", "tile_aux", "tile_retire")}
 
 
 class KernelHold:
@@ -2015,6 +2170,8 @@ class KernelHold:
             return 1
         launches = dict(bc.LAUNCHES)
         aux = bucket.ext_step_aux(state, pv, chunks, 8)
+        same_aux(bc.ext_step_aux_cuda(state, pv, chunks, 8), aux,
+                 f"{label}: the tile aux kernel against its plain version")
         err = same_state(bc.bucket_step_ext_cuda(bc.ext_pair(state), aux, True).cur,
                          bucket.bucket_step_ext(state, aux, True),
                          f"{label}: the live-tile step against its plain version")
@@ -2967,7 +3124,8 @@ def phase_config5(workdir: str, seconds: float = CONFIG5_SECONDS, n_side: int = 
     # the daemon's step follows the scene as loaded
     step = held[0]["served_step"] if held else "step"
     verdict = config5_checks(rec, check, held, shipped, n_side * n_side,
-                             (step, *CONFIG5_PATH[1:]) if torch_device == "cuda" else ())
+                             (*STEP_PATHS[step], *CONFIG5_PATH[1:]) if torch_device == "cuda"
+                             else ())
     print("config 5 held: " + json.dumps(
         {"shipped": shipped, "fifo_frames": check.frames, "particles_min_max": check.particles,
          "nonfinite_frames": check.nonfinite, "states": held, "launches": verdict["launches"],
@@ -2998,7 +3156,7 @@ BENCH_RUNS = {
     "per-frame": ("per-frame", CONFIG5_PATH, ("--per-frame",)),
     "sharded": ("sharded", HALO_KERNELS, ("--sharded",)),
     # the 1M user scene has 8 lane chunks: the Simulator steps its live tiles
-    "user": ("user", ("step_compact", "dest", "place"), BENCH_USER),
+    "user": ("user", (*STEP_PATHS["step_compact"], "dest", "place"), BENCH_USER),
 }
 
 
@@ -3168,7 +3326,7 @@ SCALE_RUNS = {
     "dense 16M": ("per-frame", CONFIG5_PATH, SCALE_16M),
     "sharded 16M": ("sharded per-frame", HALO_KERNELS, (*SCALE_16M, "--sharded")),
     # 8 lane chunks, as at 1M: the Simulator steps the live tiles
-    "user 4M": ("user", ("step_compact", "dest", "place"), SCALE_USER),
+    "user 4M": ("user", (*STEP_PATHS["step_compact"], "dest", "place"), SCALE_USER),
 }
 # the row after which a Simulator serving the same scene holds its readback
 SCALE_READBACK = "user 4M"

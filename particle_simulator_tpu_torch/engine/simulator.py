@@ -21,7 +21,10 @@ Counterpart of ``particle_simulator_tpu/engine/simulator.py``:
   leaves lane chunks (at most 75%); every other scene runs the classic
   frame. That is the rule of the JAX engine's ``PS_EXT_IO=auto``; the port
   reads no such variable. A scene that fills its box after load keeps its
-  load-time choice, as it keeps its lane chunks;
+  load-time choice, as it keeps its lane chunks. The live-tile frame
+  steps its first run into the buffer the frame before it left beside the
+  state (``_frame_spare``), so only the first frame after a load copies
+  the grid;
 - ``start_readback`` packs the live particles of a bucket grid into wire
   records (``ops/readback.py:pack_records``), or takes a CompactArray
   state whole, and starts the copy into pinned host memory; ``read_frame``
@@ -96,7 +99,7 @@ from particle_simulator_tpu_torch.engine.state import (
 )
 from particle_simulator_tpu_torch.io.frame import PARTICLE_DTYPE, DataStructure, Device, Frame
 from particle_simulator_tpu_torch.ops.allpairs_cuda import run_frame_allpairs_cuda
-from particle_simulator_tpu_torch.ops.bucket_cuda import run_frame_bucket_cuda
+from particle_simulator_tpu_torch.ops.bucket_cuda import FrameSpare, run_frame_bucket_cuda
 from particle_simulator_tpu_torch.ops.readback import pack_records, pow2_at_least, record_view
 from particle_simulator_tpu_torch.parallel import multihost
 from particle_simulator_tpu_torch.parallel.domain import (
@@ -257,6 +260,9 @@ class Simulator:
         # lane chunks of the live-tile frame, from the scene's occupancy at
         # load (_lane_chunks_for); 1 = the classic step
         self._lane_chunks = 1
+        # the buffer the last live-tile frame stepped in beside the state it
+        # returned (ops/bucket_cuda.py:FrameSpare), emptied at each load
+        self._frame_spare = FrameSpare()
         # the runner of the last frame_async: "bucket-<where>",
         # "bucket-compact-<where>", "allpairs-<where>" or "sharded-<where>",
         # where is "cuda" or "torch-cpu"
@@ -319,6 +325,7 @@ class Simulator:
         t0 = time.perf_counter()
         self.sharded = False
         self._lane_chunks = 1
+        self._frame_spare = FrameSpare()
         if self.data_structure == DataStructure.COMPACT_ARRAY:
             capacity = compact_capacity(len(live))
             self.grid = self.base_grid
@@ -434,7 +441,7 @@ class Simulator:
                     self.state = run_frame_bucket_cuda(
                         self.state, self._pvec, steps, self.grid.move_every,
                         lane_chunks=self._lane_chunks, ext_io=True, compact_tiles=True,
-                        block_rows=max(1, 1 << max(0, k - 4)))
+                        block_rows=max(1, 1 << max(0, k - 4)), spare=self._frame_spare)
                     self.active_kernel = f"bucket-compact-{where}"
                 else:
                     self.state = run_frame_bucket_cuda(self.state, self._pvec, steps,

@@ -19,7 +19,10 @@ Counterpart of ``particle_simulator_tpu/ops/bucket_pallas.py``:
   (``run_frame_bucket_pallas``'s ext branch): ``bucket_step_ext_cuda`` ->
   ``csrc/bucket_step.cu``'s tile-scheduled instance, ``compact=True``
   (``_step_kernel_compact``, live tiles only) or ``compact=False``
-  (``_step_kernel`` with ``out_off=0``, every tile).
+  (``_step_kernel`` with ``out_off=0``, every tile); its tile aux
+  ``ext_step_aux_cuda`` -> ``csrc/bucket_tiles.cu`` (``ps_tile_aux``),
+  which also readies a buffer of one run of steps for the next (the
+  retire).
 
 Every step kernel is the same block-level design (``csrc/bucket_stage.cuh``):
 a block stages a sub-tile's live candidates compacted in shared memory and
@@ -32,9 +35,10 @@ Each wrapper checks dtype, shape, contiguity and device. A state on the CPU
 goes to the plain PyTorch version in ``physics/bucket.py``; a state on a
 CUDA device launches the kernel on ``torch.cuda.current_stream()``; any other
 device raises. Outputs are allocated fresh on every call, or, for the
-ext-layout step, are the spare buffer of a pair the frame allocated for its
-move chunk, so a state a readback still holds is never overwritten.
-``LAUNCHES`` counts kernel launches per kernel, and only those.
+ext-layout step and the retire, are buffers the frame owns, so a state a
+readback still holds is never overwritten.
+``LAUNCHES`` counts kernel launches per kernel, and only those
+(``tile_retire``: the ``tile_aux`` launches that also retire a buffer).
 """
 
 from __future__ import annotations
@@ -49,7 +53,7 @@ from particle_simulator_tpu_torch.physics import bucket
 
 LAUNCHES = {"step": 0, "dest": 0, "place": 0,
             "step_halo": 0, "dest_halo": 0, "place_halo": 0,
-            "step_ext": 0, "step_compact": 0}
+            "step_ext": 0, "step_compact": 0, "tile_aux": 0, "tile_retire": 0}
 
 # blocks (of 256 threads, one sub-tile of a tile each) of one ext-layout step
 # launch per SM of the card (ps_bucket_step_tiles); 16 to 64 time alike on the
@@ -160,25 +164,50 @@ def bucket_move_cuda(state: ParticleState) -> ParticleState:
 
 
 class ExtPair(NamedTuple):
-    """The two buffers a move chunk's ext-layout steps run between: ``cur``
-    is the chunk's state, ``spare`` the buffer the next step writes (its x,
-    y, vx, vy; its ty is ``cur``'s, which no step writes). Both hold the
-    same bytes on every slot no step of the chunk writes: every tombstone,
-    so every dead tile."""
+    """The two buffers a run of ext-layout steps swaps: ``cur`` is the run's
+    state, ``spare`` the buffer the next step writes (its x, y, vx, vy; its
+    ty is ``cur``'s, which no step writes). Both hold the same bytes on
+    every slot no step of the run writes: every tombstone, so every dead
+    tile."""
 
     cur: ParticleState
     spare: ParticleState
 
 
-def ext_pair(state: ParticleState, own: bool = False) -> ExtPair:
+def ext_pair(state: ParticleState) -> ExtPair:
     """A fresh pair for ``state``, sharing its ty: two copies of its x, y,
-    vx, vy, never its own buffers (a readback may hold them); with ``own``
-    (a state nothing else holds, such as a rebucket's output inside a
-    frame) the state itself and one copy."""
+    vx, vy, never its own buffers (a readback may hold them)."""
     def copy():
         return ParticleState(*(a.clone() for a in state[:4]), state.ty)
 
-    return ExtPair(state if own else copy(), copy())
+    return ExtPair(copy(), copy())
+
+
+class FrameSpare:
+    """What a live-tile frame keeps for the next frame of the state it
+    returned: the buffer it stepped in beside that state and did not return,
+    which holds the same bytes as the state on every slot where the state is
+    dead, and the state's tile aux. ``run_frame_bucket_cuda`` takes them
+    (emptying it) when it is given that very state, and fills it again as it
+    ends; the ``Simulator`` owns one and empties it when a scene is
+    loaded."""
+
+    __slots__ = ("state", "buffer", "aux")
+
+    def __init__(self):
+        self.state = self.buffer = self.aux = None
+
+    def take(self, state: ParticleState):
+        """(the kept buffer, the aux) if ``state`` is the state they were
+        kept beside, else None."""
+        kept, buffer, aux = self.state, self.buffer, self.aux
+        self.state = self.buffer = self.aux = None
+        if kept is not None and all(a is b for a, b in zip(kept, state)):
+            return ParticleState(*buffer[:4], state.ty), aux
+        return None
+
+    def keep(self, state: ParticleState, buffer: ParticleState, aux: bucket.ExtStepAux) -> None:
+        self.state, self.buffer, self.aux = state, buffer, aux
 
 
 @functools.lru_cache(maxsize=None)
@@ -188,11 +217,11 @@ def _sm_count(index: int) -> int:
 
 def bucket_step_ext_cuda(pair, aux: bucket.ExtStepAux, compact: bool):
     """One ext-layout step (``bucket_step_pallas_ext``) over the tiles of
-    ``aux`` (``physics/bucket.py:ext_step_aux`` of the chunk's state):
-    ``compact`` visits the live tiles only, else every tile. ``pair`` is an
-    ``ExtPair``, and the result the pair after the step (the stepped state
-    in ``cur``, the input's buffers as the spare); a ``ParticleState`` is
-    stepped through a fresh pair and the stepped state returned."""
+    ``aux`` (``ext_step_aux_cuda`` of the run's state): ``compact`` visits
+    the live tiles only, else every tile. ``pair`` is an ``ExtPair``, and
+    the result the pair after the step (the stepped state in ``cur``, the
+    input's buffers as the spare); a ``ParticleState`` is stepped through a
+    fresh pair and the stepped state returned."""
     if isinstance(pair, ParticleState):
         return bucket_step_ext_cuda(ext_pair(pair), aux, compact).cur
     _check_ext(pair, aux)
@@ -200,16 +229,16 @@ def bucket_step_ext_cuda(pair, aux: bucket.ExtStepAux, compact: bool):
 
 
 def _check_ext(pair: ExtPair, aux: bucket.ExtStepAux) -> None:
-    """Validate an ext step's pair and aux. The steps of one move chunk
-    swap the same two buffers under the same aux, so the frame checks them
-    once, at the chunk's entry."""
+    """Validate an ext step's pair and aux. The steps of one run swap the
+    same two buffers under the same aux, so the frame checks them once, at
+    the run's entry."""
     cur, spare = pair
     _on_cuda(cur)
     check_fields(spare)
     if spare.x.shape != cur.x.shape or spare.x.device != cur.x.device:
         raise ValueError(f"spare buffers {tuple(spare.x.shape)} on {spare.x.device} differ "
                          f"from the state's {tuple(cur.x.shape)} on {cur.x.device}")
-    if any(a.data_ptr() == b.data_ptr() for a in cur[:4] for b in spare[:4]):
+    if _shares(cur, spare):
         raise ValueError("the spare buffers share memory with the state")
     by, bx, cap = cur.x.shape
     if aux.lane_chunks < 1 or bx % aux.lane_chunks or by % aux.ty_rows:
@@ -223,57 +252,148 @@ def _check_ext(pair: ExtPair, aux: bucket.ExtStepAux) -> None:
     check_aux(aux.sizes, "sizes", torch.int32, (1,), device)
 
 
+def _shares(a: ParticleState, b: ParticleState) -> bool:
+    """Whether two states share the memory of any of their x, y, vx, vy."""
+    return any(u.data_ptr() == v.data_ptr() for u in a[:4] for v in b[:4])
+
+
 def _launch_ext(pair: ExtPair, aux: bucket.ExtStepAux, compact: bool) -> ExtPair:
-    """The ext step of a checked pair (``_check_ext``)."""
+    """The ext step of a checked pair (``_check_ext``): it writes the
+    spare's slots that the kernel writes (``bucket_step_ext_into`` on the
+    CPU) and swaps the pair."""
     cur, spare = pair
     if not cur.x.is_cuda:
-        return ExtPair(bucket.bucket_step_ext(cur, aux, compact), cur)
-    by, bx, cap = cur.x.shape
-    device = cur.x.device
-    with torch.cuda.device(device):
-        budget = TILE_BLOCKS_PER_SM * _sm_count(torch.cuda.current_device())
-        launch("ps_bucket_step_tiles", *(a.data_ptr() for a in cur),
-               *(t.data_ptr() for t in aux[:4]), *(o.data_ptr() for o in spare[:4]),
-               by, bx, cap, aux.ty_rows, aux.lane_chunks, int(compact), budget)
-    LAUNCHES["step_compact" if compact else "step_ext"] += 1
+        bucket.bucket_step_ext_into(cur, aux, compact, spare)
+    else:
+        by, bx, cap = cur.x.shape
+        with torch.cuda.device(cur.x.device):
+            budget = TILE_BLOCKS_PER_SM * _sm_count(torch.cuda.current_device())
+            launch("ps_bucket_step_tiles", *(a.data_ptr() for a in cur),
+                   *(t.data_ptr() for t in aux[:4]), *(o.data_ptr() for o in spare[:4]),
+                   by, bx, cap, aux.ty_rows, aux.lane_chunks, int(compact), budget)
+        LAUNCHES["step_compact" if compact else "step_ext"] += 1
     return ExtPair(ParticleState(*spare[:4], cur.ty), cur)
+
+
+def ext_step_aux_cuda(state: ParticleState, params: torch.Tensor, lane_chunks: int,
+                      block_rows: int | None = None, retire=None) -> bucket.ExtStepAux:
+    """The tile aux of a (BY, BX, CAP) state (``physics/bucket.py:
+    ext_step_aux``, bit for bit): one ``ps_tile_aux`` call, two launches,
+    no host sync. ``retire`` = (buffer, old aux): in the same pass,
+    tombstone the buffer's x, y, vx, vy where the state is dead below the
+    old aux's ``bucket_max`` (``physics/bucket.py:tile_retire``)."""
+    on_cuda = _on_cuda(state)
+    check_aux(params, "params", torch.float32, (NPARAMS,), state.x.device)
+    ty_rows, n_tiles = bucket.ext_tiling(state.ty.shape, lane_chunks, block_rows)
+    by, bx, cap = state.ty.shape
+    dev = state.ty.device
+    if retire is not None:
+        spare, old = retire
+        check_fields(ParticleState(*spare[:4], state.ty))
+        if (old.ty_rows, old.lane_chunks) != (ty_rows, int(lane_chunks)):
+            raise ValueError("the old aux has other tiles")
+        check_aux(old.flags, "flags", torch.int32, (n_tiles,), dev)
+        check_aux(old.bucket_max, "bucket_max", torch.int32, (by, bx), dev)
+    if not on_cuda:
+        if retire is not None:
+            bucket.tile_retire(spare, state.ty, old)
+        return bucket.ext_step_aux(state, params, lane_chunks, block_rows)
+    with torch.cuda.device(dev):
+        aux = bucket.ExtStepAux(torch.empty(NPARAMS + 1, dtype=torch.float32, device=dev),
+                                *(torch.empty(n, dtype=torch.int32, device=dev)
+                                  for n in (n_tiles, n_tiles, 1)),
+                                ty_rows, int(lane_chunks),
+                                torch.empty((by, bx), dtype=torch.int32, device=dev))
+        rt = (*spare[:4], old.bucket_max, old.flags) if retire is not None else (None,) * 6
+        launch("ps_tile_aux", state.ty.data_ptr(), params.data_ptr(),
+               *(t.data_ptr() for t in (*aux[:4], aux.bucket_max)),
+               *(None if t is None else t.data_ptr() for t in rt),
+               by, bx, cap, ty_rows, aux.lane_chunks)
+    LAUNCHES["tile_aux"] += 1
+    LAUNCHES["tile_retire"] += retire is not None
+    return aux
 
 
 def run_frame_bucket_cuda(state: ParticleState, params: torch.Tensor, steps: int,
                           move_every: int = 16, lane_chunks: int = 1, ext_io: bool = False,
-                          compact_tiles: bool = True,
-                          block_rows: int | None = None) -> ParticleState:
+                          compact_tiles: bool = True, block_rows: int | None = None,
+                          spare: FrameSpare | None = None) -> ParticleState:
     """One frame: ``steps`` kernel steps, rebucketing before steps 1, 1+k, ...
-    (``physics/bucket.py:chunked_frame_schedule``). ``steps`` is a plain int,
-    so a live steps-per-frame edit changes nothing but the loop count.
+    (``physics/bucket.py:frame_runs``). ``steps`` is a plain int, so a live
+    steps-per-frame edit changes nothing but the loop count.
 
     With ``ext_io`` and ``lane_chunks`` > 1, the ext-layout frame
-    (``run_frame_bucket_pallas``'s ext branch): each run of steps enters by
-    computing the tile aux (``lane_chunks`` chunks, tiles of ``block_rows``
-    rows where they fit) and a buffer pair, checked once for the run, steps
-    with the tile-scheduled kernel (live tiles only with ``compact_tiles``),
-    and exits with the current buffer. The first run's pair is two copies
-    of ``state``, which a readback may hold; a later run's is the
-    rebucket's output, which only this frame holds, and one copy. The
-    rebucket is the classic one. Otherwise every step is the classic step."""
+    (``run_frame_bucket_pallas``'s ext branch, ``_ext_frame``); otherwise
+    every step is the classic step. ``spare`` (the ext frame only) carries a
+    buffer from one frame to the next."""
     if ext_io and lane_chunks > 1:
-        def enter(s):
-            pair = ext_pair(s, own=s is not state)
-            aux = bucket.ext_step_aux(s, params, lane_chunks, block_rows)
-            _check_ext(pair, aux)
-            return pair, aux
-
-        def step(carry):
-            pair, aux = carry
-            return _launch_ext(pair, aux, compact_tiles), aux
-
-        return bucket.chunked_frame_schedule(
-            state, steps, move_every, step, bucket_move_cuda,
-            enter=enter, exit=lambda carry: carry[0].cur,
-        )
+        return _ext_frame(state, params, steps, move_every, lane_chunks, compact_tiles,
+                          block_rows, spare)
     return bucket.chunked_frame_schedule(
         state, steps, move_every, lambda s: bucket_step_cuda(s, params), bucket_move_cuda,
     )
+
+
+def _ext_frame(state, params, steps, move_every, lane_chunks, compact, block_rows,
+               spare: FrameSpare | None) -> ParticleState:
+    """The ext-layout frame. Each run of steps enters with the tile aux of
+    its state (``lane_chunks`` chunks, tiles of ``block_rows`` rows where
+    they fit) and a buffer pair, both checked once for the run, and steps
+    with the tile-scheduled kernel (live tiles only with ``compact``); the
+    rebucket between runs is the classic one. No run copies a grid:
+
+    - the first run steps ``state``, which is never written (a readback may
+      hold it), into the buffer ``spare`` kept beside it, under the aux kept
+      with it (the same ty) and this frame's params, or into a copy of it
+      under a new aux when nothing is kept (a frame after a scene load);
+    - a later run steps between the rebucket's output and the buffer the run
+      before it stepped in and left free, once its aux has tombstoned the
+      slots that were live and went dead there (a fresh zero buffer after
+      a first run that stepped into a copy, which may hold a caller's
+      non-zero tombstones);
+    - the buffer the last run leaves free goes into ``spare`` beside the
+      returned state, with the last run's aux, unless that buffer is
+      ``state`` (a one-run frame).
+
+    So the result equals the classic frame on every slot of every field."""
+    runs = bucket.frame_runs(steps, move_every)
+    if not runs:
+        return state
+    kept = spare.take(state) if spare is not None else None
+    fresh = kept is None
+    if fresh:
+        first, aux = ParticleState(*(a.clone() for a in state[:4]), state.ty), None
+    else:
+        first, aux = kept
+        tiling = (bucket.ext_tiling(state.ty.shape, lane_chunks, block_rows)[0], int(lane_chunks))
+        if (aux.ty_rows, aux.lane_chunks) != tiling:
+            aux = None  # a live edit of the tile height
+    for i, run in enumerate(runs):
+        retire = None
+        if i:
+            # the run before left a buffer free: its spare, or its result
+            # when the spare is the given state
+            cur, free = pair
+            if _shares(free, state):
+                free = cur
+            moved = bucket_move_cuda(cur)
+            if i == 1 and fresh:
+                free = ParticleState(*(torch.zeros_like(a) for a in state[:4]), moved.ty)
+            else:
+                retire = (free, aux)
+            pair = ExtPair(moved, ParticleState(*free[:4], moved.ty))
+        else:
+            pair = ExtPair(state, first)
+        if i or aux is None:
+            aux = ext_step_aux_cuda(pair.cur, params, lane_chunks, block_rows, retire)
+        else:
+            aux = aux._replace(params=torch.cat([params[:NPARAMS], aux.params[NPARAMS:]]))
+        _check_ext(pair, aux)
+        for _ in range(run):
+            pair = _launch_ext(pair, aux, compact)
+    if spare is not None and not _shares(pair.spare, state):
+        spare.keep(pair.cur, pair.spare, aux)
+    return pair.cur
 
 
 def _halo_grids(padded: ParticleState, bx_log2: int | None = None,

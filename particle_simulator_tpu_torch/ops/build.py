@@ -39,6 +39,10 @@ _SIGNATURES = {
     # x, y, vx, vy, ty, params, flags, order, sizes, ox, oy, ovx, ovy,
     # gy, gx, cap, ty_rows, n_chunks, compact, block_budget, stream
     "ps_bucket_step_tiles": [_P] * 13 + [_I] * 7 + [_P],
+    # ty, params, params_out, flags, order, sizes, bucket_max, then the
+    # retire's x, y, vx, vy, old_bucket_max, old_flags (null: none), gy, gx,
+    # cap, ty_rows, n_chunks, stream
+    "ps_tile_aux": [_P] * 13 + [_I] * 5 + [_P],
     # x, y, ty, offsets, destid, n_grids, gy, gx, cap, bx_log2, by_log2, ring, stream
     "ps_bucket_dest": [_P] * 5 + [_I] * 7 + [_P],
     # x, y, vx, vy, ty, destid, ox, oy, ovx, ovy, oty, n_grids, n_src, n_out, stream

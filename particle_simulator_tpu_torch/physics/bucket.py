@@ -32,7 +32,10 @@ visit order and the occupancy bound once per move chunk, and
 
 - ``bucket_step_ext`` <-> ``bucket_step.cu``'s tile-scheduled instance
   (``compact`` False: every tile in natural order; True: the live tiles
-  only).
+  only; ``bucket_step_ext_into`` writes the slots the kernel writes);
+- ``ext_step_aux``    <-> ``bucket_tiles.cu``'s ``ps_tile_aux``;
+- ``tile_retire``     <-> ``ps_tile_aux``'s retire, which lets the
+  live-tile frame step a run in a buffer of an earlier run.
 """
 
 from __future__ import annotations
@@ -345,6 +348,7 @@ class ExtStepAux(NamedTuple):
     sizes: torch.Tensor   # (1,) i32: max(live tiles, 1), the real visits of ``order``
     ty_rows: int
     lane_chunks: int
+    bucket_max: torch.Tensor  # (BY, BX) i32: each bucket's largest live slot + 1
 
 
 def _pick_ty_rows(by: int, lanes: int, requested: int | None = None) -> int:
@@ -360,21 +364,34 @@ def _pick_ty_rows(by: int, lanes: int, requested: int | None = None) -> int:
     return by
 
 
+def ext_tiling(shape, lane_chunks: int, block_rows: int | None = None) -> tuple[int, int]:
+    """(ty_rows, n_tiles) of the tiles of a (BY, BX, CAP) grid cut into
+    ``lane_chunks`` chunks and tiles of ``block_rows`` rows where they fit
+    (``_pick_ty_rows``)."""
+    by, bx, cap = shape
+    c = int(lane_chunks)
+    if c < 1 or bx % c:
+        raise ValueError(f"lane_chunks={lane_chunks} must divide bx={bx}")
+    ty_rows = _pick_ty_rows(by, bx * cap, block_rows)
+    return ty_rows, by // ty_rows * c
+
+
 def ext_step_aux(state: ParticleState, params: torch.Tensor, lane_chunks: int,
                  block_rows: int | None = None) -> ExtStepAux:
     """The tile aux of a (BY, BX, CAP) state, on its device and without a
     host sync: ``omax`` (the largest live slot index + 1 over the grid)
     appended to ``params``, the tile flags, and the visit order, with an
-    all-dead grid visiting tile 0 once (``sizes`` = [1])."""
+    all-dead grid visiting tile 0 once (``sizes`` = [1]), and each bucket's
+    largest live slot + 1. The plain version of ``ops/csrc/bucket_tiles.cu``'s
+    ``ps_tile_aux``."""
     by, bx, cap = state.ty.shape
     c = int(lane_chunks)
-    if c < 1 or bx % c:
-        raise ValueError(f"lane_chunks={lane_chunks} must divide bx={bx}")
-    ty_rows = _pick_ty_rows(by, bx * cap, block_rows)
+    ty_rows, _ = ext_tiling(state.ty.shape, c, block_rows)
     n_blocks = by // ty_rows
     dev = state.ty.device
     slot_no = torch.arange(1, cap + 1, dtype=torch.int32, device=dev)
-    omax = torch.where(state.ty >= 0, slot_no, 0).amax()
+    bucket_max = torch.where(state.ty >= 0, slot_no, 0).amax(dim=-1)
+    omax = bucket_max.amax()
     params = torch.cat([params[:NPARAMS], omax.to(torch.float32).reshape(1)])
     tiles = state.ty.reshape(n_blocks, ty_rows, c, (bx // c) * cap).amax(dim=(1, 3))
     live = (tiles >= 0).reshape(-1)
@@ -383,7 +400,7 @@ def ext_step_aux(state: ParticleState, params: torch.Tensor, lane_chunks: int,
     last_live = order0[(n_real - 1).long()]
     idx = torch.arange(live.numel(), device=dev)
     order = torch.where(idx < n_real, order0, last_live).to(torch.int32)
-    return ExtStepAux(params, live.to(torch.int32), order, n_real, ty_rows, c)
+    return ExtStepAux(params, live.to(torch.int32), order, n_real, ty_rows, c, bucket_max)
 
 
 def _tile_slots(tiles: torch.Tensor, aux: ExtStepAux, shape) -> torch.Tensor:
@@ -395,6 +412,15 @@ def _tile_slots(tiles: torch.Tensor, aux: ExtStepAux, shape) -> torch.Tensor:
     return per_tile.expand(-1, aux.ty_rows, -1, bx // c).reshape(by, bx, 1)
 
 
+def _visited(aux: ExtStepAux, compact: bool) -> torch.Tensor:
+    """(n_tiles,) bool: the live tiles the ext step visits."""
+    if not compact:
+        return aux.flags != 0
+    first = torch.arange(aux.order.numel(), device=aux.order.device) < aux.sizes
+    visits = torch.zeros_like(aux.flags).index_add_(0, aux.order.long(), first.to(torch.int32))
+    return (visits > 0) & (aux.flags != 0)
+
+
 def bucket_step_ext(state: ParticleState, aux: ExtStepAux, compact: bool) -> ParticleState:
     """The ext-layout step: ``bucket_step`` on the tiles the kernel visits,
     the input on the others. ``compact`` False visits the live tiles of the
@@ -404,22 +430,51 @@ def bucket_step_ext(state: ParticleState, aux: ExtStepAux, compact: bool) -> Par
     holds only tombstones, which the step passes through, and the receivers
     of the others are stepped on the whole grid's element layout, as
     ``bucket_step`` steps them (no gather of live receivers)."""
-    if compact:
-        first = torch.arange(aux.order.numel(), device=aux.order.device) < aux.sizes
-        visits = torch.zeros_like(aux.flags).index_add_(0, aux.order.long(),
-                                                        first.to(torch.int32))
-        visited = (visits > 0) & (aux.flags != 0)
-    else:
-        visited = aux.flags != 0
-    keep_new = _tile_slots(visited, aux, state.ty.shape)
+    keep_new = _tile_slots(_visited(aux, compact), aux, state.ty.shape)
     stepped = bucket_step(state, aux.params[:NPARAMS])
     return ParticleState(*(torch.where(keep_new, s, a) for s, a in zip(stepped[:4], state[:4])),
                          state.ty)
 
 
+def bucket_step_ext_into(state: ParticleState, aux: ExtStepAux, compact: bool,
+                         out: ParticleState) -> None:
+    """``bucket_step_ext`` written into ``out``'s x, y, vx, vy where the
+    tile-scheduled kernel writes: with ``compact`` the live slots of the
+    visited tiles only (every other slot of ``out`` keeps its bytes), else
+    every slot."""
+    stepped = bucket_step_ext(state, aux, compact)
+    if compact:
+        written = _tile_slots(_visited(aux, True), aux, state.ty.shape) & (state.ty >= 0)
+        stepped = [torch.where(written, s, o) for s, o in zip(stepped[:4], out[:4])]
+    for o, s in zip(out[:4], stepped[:4]):
+        o.copy_(s)
+
+
+def tile_retire(spare: ParticleState, ty: torch.Tensor, old: ExtStepAux) -> None:
+    """Tombstone, in place, the x, y, vx, vy of ``spare`` on every slot that
+    is dead in ``ty`` and lies below its bucket's ``old.bucket_max``. A
+    buffer that holds tombstones wherever the ty of ``old`` was dead (the
+    live-tile step wrote its live slots only) then holds them wherever
+    ``ty`` is dead. The plain version of the retire that
+    ``ops/csrc/bucket_tiles.cu``'s ``ps_tile_aux`` does beside the aux."""
+    slot = torch.arange(ty.shape[-1], device=ty.device)
+    stale = (slot < old.bucket_max[..., None]) & (ty < 0)
+    for a in spare[:4]:
+        a.masked_fill_(stale, 0)
+
+
 # ---------------------------------------------------------------------------
 # frame schedule
 # ---------------------------------------------------------------------------
+
+def frame_runs(steps: int, move_every: int) -> list[int]:
+    """The runs of steps of a frame of ``steps`` steps: one step, then runs
+    of at most ``move_every`` steps, a rebucket pass before each run but the
+    first (so before steps 1, 1+k, 1+2k, ...)."""
+    if steps < 1:
+        return []
+    return [1] + [min(move_every, steps - done) for done in range(1, steps, move_every)]
+
 
 def chunked_frame_schedule(
     state: ParticleState,
@@ -427,30 +482,14 @@ def chunked_frame_schedule(
     move_every: int,
     step: Callable,
     move: Callable[[ParticleState], ParticleState],
-    enter: Callable | None = None,
-    exit: Callable | None = None,
 ) -> ParticleState:
-    """``steps`` physics steps with ``move`` before steps 1, 1+k, 1+2k, ...
-    (k = ``move_every``): one step, then chunks of (move, <= k steps).
-    ``enter``/``exit`` bracket each run of steps, not the move: ``step``
-    gets ``enter(state)``'s value and ``exit`` turns the run's result back
-    into a state, so step 0 is ``exit(step(enter(state)))``. The ext-layout
-    frame builds its per-chunk buffers and tile aux there; the identity
-    defaults leave the classic frame as it was."""
-    enter = enter or (lambda s: s)
-    exit = exit or (lambda s: s)
-    if steps < 1:
-        return state
-    state = exit(step(enter(state)))
-    done = 1
-    while done < steps:
-        state = move(state)
-        run = min(move_every, steps - done)
-        carry = enter(state)
+    """``steps`` physics steps with ``move`` before each run of
+    ``frame_runs`` but the first."""
+    for i, run in enumerate(frame_runs(steps, move_every)):
+        if i:
+            state = move(state)
         for _ in range(run):
-            carry = step(carry)
-        state = exit(carry)
-        done += run
+            state = step(state)
     return state
 
 

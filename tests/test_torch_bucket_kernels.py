@@ -294,4 +294,4 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert not (tmp_path / "build" / build.LIB_NAME).exists()
     assert [p.name for p in build.sources()] == [
         "allpairs_step.cu", "bucket_dest.cu", "bucket_place.cu", "bucket_step.cu",
-        "readback_pack.cu"]
+        "bucket_tiles.cu", "readback_pack.cu"]

@@ -1,16 +1,20 @@
 """The port's ext-layout MatrixBuckets path against the JAX package: the
 tile aux, the plain version of the tile-scheduled step (rows 5 and 6 of
 PERF.md's kernel table, ``bucket_step_pallas_ext`` with ``compact`` True
-and False), the ext frame, the schedule's enter/exit hooks, the Simulator's lane-chunk
-choice (the JAX engine's) and its runner, which the scene alone picks: the
-live-tile step wherever the scene got lane chunks, the rule of the JAX
-engine's ``PS_EXT_IO=auto``, whatever the environment holds. The JAX
-kernels run in interpret mode.
+and False), the ext frame and its runs (the JAX schedule's enter/exit
+hooks), the buffers the live-tile frame steps in (no run enters with a
+copy; the retire and the ``FrameSpare`` carried from frame to frame), a
+model of the tile aux kernel, the Simulator's lane-chunk choice (the JAX
+engine's) and its runner, which the scene alone picks: the live-tile step
+wherever the scene got lane chunks, the rule of the JAX engine's
+``PS_EXT_IO=auto``, whatever the environment holds. The JAX kernels run in
+interpret mode.
 
 Contract:
 - the aux (params with omax, flags, order, sizes): bit-identical to JAX;
 - the plain ext step and the ext frame: bit-identical to the port's classic
-  plain step and frame, on every field and slot;
+  plain step and frame, on every field and slot, over frames in a row that
+  share one ``FrameSpare``, the given state's bytes unchanged;
 - against JAX's ext step (two steps): ``ty`` equal, x/y within 8
   fixed-point units, live vx/vy within rtol 1e-4, atol 1e-6 (the North
   star's step envelope: f32 pair sums in another order);
@@ -146,10 +150,11 @@ def test_ext_step_aux_matches_jax(case):
         assert aux.flags.tolist() == [1, 0, 0, 0] and aux.order.tolist() == [0, 0, 0, 0]
 
 
-def lattice_fields(cfg, nx, ny, center_frac, seed=3):
+def lattice_fields(cfg, nx, ny, center_frac, seed=3, drift=0.0):
     """A hex lattice at 1.1 r0 in a box of 2 r0 buckets, centred at
-    ``center_frac`` of its sides, thermal velocities (~150 m/s an axis),
-    dt = 10 fs, on ``cfg``: a few particles a bucket, none dropped."""
+    ``center_frac`` of its sides, thermal velocities (~150 m/s an axis)
+    plus ``drift`` m/s along x, dt = 10 fs, on ``cfg``: a few particles a
+    bucket, none dropped."""
     rng = np.random.default_rng(seed)
     frame = Frame.new()
     meta = frame.metadata
@@ -164,6 +169,7 @@ def lattice_fields(cfg, nx, ny, center_frac, seed=3):
     parts = frame.particles.copy()
     parts["vx"] = rng.normal(0, 150, len(parts)).astype(np.float32)
     parts["vy"] = rng.normal(0, 150, len(parts)).astype(np.float32)
+    parts["vx"] += np.float32(drift)
     layout = bucket.bucketize_numpy(parts, cfg)
     assert (layout["ty"] >= 0).sum() == nx * ny
     return tuple(layout[f].reshape(cfg.grid_shape) for f in PARTICLE_DTYPE.names), meta.copy()
@@ -231,9 +237,12 @@ def test_ext_frame_matches_classic_and_jax(compact):
 
 @pytest.mark.parametrize("unroll", [False, True])
 def test_schedule_enter_exit_sequence_matches_jax(unroll):
-    """enter/exit bracket each run of steps, the moves stay outside: the
-    same call sequence as the JAX schedule, whose hooks run traced inside
-    its loops (so each logs into an array carried through them)."""
+    """The runs of ``frame_runs`` are the runs that the JAX schedule's
+    enter/exit hooks bracket, the moves between them: the same call
+    sequence, whose hooks run traced inside its loops (so each logs into an
+    array carried through them). ``chunked_frame_schedule`` (the classic
+    and sharded frames) and the ext frame (``_ext_frame``, which enters each
+    run with its aux and buffers) walk those runs."""
     codes = {"enter": 1, "step": 2, "exit": 3, "move": 4}
 
     def jlog(code):
@@ -244,13 +253,16 @@ def test_schedule_enter_exit_sequence_matches_jax(unroll):
 
     for steps in (0, 1, 2, 5, 9, 10):
         log = []
-        hooks = {k: (lambda c, k=k: log.append(codes[k]) or c) for k in codes}
-        bucket.chunked_frame_schedule(None, steps, 4, hooks["step"], hooks["move"],
-                                      enter=hooks["enter"], exit=hooks["exit"])
+        for i, run in enumerate(bucket.frame_runs(steps, 4)):
+            log += [4] * (i > 0) + [1] + [2] * run + [3]
         jl, n = jbucket.chunked_frame_schedule(
             (jnp.zeros(64, jnp.int32), jnp.int32(0)), steps, 4, jlog(2), jlog(4),
             unroll=unroll, enter=jlog(1), exit=jlog(3))
         assert log == np.asarray(jl)[:int(n)].tolist(), steps
+        walked = []
+        bucket.chunked_frame_schedule(None, steps, 4, lambda c: walked.append(2),
+                                      lambda c: walked.append(4))
+        assert walked == [c for c in log if c in (2, 4)], steps
     assert log == [1, 2, 3] + [4, 1, 2, 2, 2, 2, 3] * 2 + [4, 1, 2, 3]
 
 
@@ -368,6 +380,25 @@ def test_the_scene_picks_the_live_tile_step_on_a_sparse_scene():
     assert live == classic[0]
 
 
+def test_the_simulator_keeps_the_live_tile_buffer_beside_its_state():
+    """The Simulator's ``FrameSpare`` holds, after each live-tile frame, the
+    buffer kept beside the state it serves (read back between frames), and
+    a scene load empties it; the frames equal the classic runner's."""
+    sim = Simulator(bucket.GridConfig(8, 4, 8), device="cpu")
+    sim.load_frame(sparse_scene())
+    spare = sim._frame_spare
+    assert spare.state is None and sim._lane_chunks == 2
+    frames = []
+    for _ in range(3):
+        sim.frame_async()
+        assert sim._frame_spare is spare and spare.state is sim.state
+        assert not bucket_cuda._shares(spare.buffer, sim.state)
+        frames.append(sim.read_frame(sim.start_readback()).bytes)
+    assert frames == served_frames(sparse_scene(), 3, classic=True)[0]
+    sim.load_frame(sparse_scene())
+    assert sim._frame_spare.state is None and sim._frame_spare.buffer is None
+
+
 @pytest.mark.parametrize("device, launches", [("cpu", 0), ("cuda", 3 * 6)])
 def test_live_tile_launches_are_counted_where_the_kernel_runs(monkeypatch, device, launches):
     """``step.live_tile_launches`` adds a live-tile frame's steps (one
@@ -479,33 +510,250 @@ def test_ext_wrapper_validates_and_keeps_held_buffers():
         bucket_cuda.bucket_step_ext_cuda(state.to("meta"), aux, True)
     with pytest.raises(ValueError):
         bucket.ext_step_aux(state, pv, 3)
+    spare = bucket_cuda.ext_pair(state).spare
+    with pytest.raises(ValueError, match="other tiles"):  # a retire under another tiling
+        bucket_cuda.ext_step_aux_cuda(state, pv, C, ROWS, (spare, aux._replace(ty_rows=4)))
+    with pytest.raises(ValueError):  # an old aux of another grid
+        bucket_cuda.ext_step_aux_cuda(state, pv, C, ROWS,
+                                      (spare, aux._replace(bucket_max=aux.bucket_max[1:])))
+    assert_same(spare, bucket_cuda.ext_pair(state).spare)  # neither retired anything
 
 
-def test_ext_frame_copies_the_given_state_twice_and_a_rebucket_output_once(monkeypatch):
-    """The ext frame's first run of steps steps between two copies of the
-    state it was given (a readback may hold it); each later run between the
-    rebucket's output, which only the frame holds, and one copy. The frame
-    equals the classic one."""
-    fields, meta = lattice_fields(CFG, 8, 8, (0.25, 0.25))
+def test_ext_frame_enters_no_run_with_a_copy(monkeypatch):
+    """No run of the ext frame enters with a copy of a grid: the first run
+    steps the given state into the buffer the frame before left beside it
+    (under the aux kept with it), each later run between the rebucket's
+    output and a buffer of an earlier run, retired by its aux; only the
+    first frame for a state (nothing kept) copies it once and zero-fills
+    once. The given state is never a buffer a step writes, the frames equal
+    the classic ones."""
+    fields, meta = lattice_fields(CFG, 8, 8, (0.45, 0.25), drift=6000.0)
     state, params = from_reference(fields, meta)
     pv = params.vector()
-    pairs = []
-    real = bucket_cuda.ext_pair
+    entries, moved, returned = [], [], []
+    real_step, real_move = bucket_cuda._launch_ext, bucket_cuda.bucket_move_cuda
 
-    def spy(s, own=False):
-        pairs.append((s, own, real(s, own)))
-        return pairs[-1][2]
+    def step(pair, aux, compact):
+        if not any(pair is r for r in returned):  # a run's entry, not a step's result
+            entries.append(pair)
+        returned.append(real_step(pair, aux, compact))
+        return returned[-1]
 
-    monkeypatch.setattr(bucket_cuda, "ext_pair", spy)
-    out = bucket_cuda.run_frame_bucket_cuda(state, pv, 10, 4, lane_chunks=C, ext_io=True,
-                                            block_rows=ROWS)
-    assert [own for _, own, _ in pairs] == [False, True, True, True]  # steps 1 | 4 | 4 | 1
-    assert not any(a.data_ptr() == b.data_ptr()
-                   for p in pairs[0][2] for a, b in zip(p[:4], state[:4]))
-    for s, _, (cur, spare) in pairs[1:]:
-        assert cur is s and not any(a.data_ptr() == b.data_ptr()
-                                    for a, b in zip(cur[:4], spare[:4]))
-    assert_same(out, bucket.run_frame_bucket(state, pv, 10, 4))
+    def move(s):
+        moved.append(real_move(s))
+        return moved[-1]
+
+    auxes = []
+    real_aux = bucket_cuda.ext_step_aux_cuda
+
+    def aux(*args):
+        auxes.append(args[4] if len(args) > 4 else None)
+        return real_aux(*args)
+
+    monkeypatch.setattr(bucket_cuda, "_launch_ext", step)
+    monkeypatch.setattr(bucket_cuda, "bucket_move_cuda", move)
+    monkeypatch.setattr(bucket_cuda, "ext_step_aux_cuda", aux)
+    spare = bucket_cuda.FrameSpare()
+    ref = state
+    for frame in range(3):
+        entries.clear()
+        moved.clear()
+        auxes.clear()
+        kept = spare.buffer
+        held = ParticleState(*(a.clone() for a in state))
+        out = bucket_cuda.run_frame_bucket_cuda(state, pv, 10, 4, lane_chunks=C, ext_io=True,
+                                                block_rows=ROWS, spare=spare)
+        assert len(entries) == 4  # steps 1 | 4 | 4 | 1
+        assert entries[0].cur is state
+        known = [state, *moved] + ([kept] if kept is not None else [])
+        fresh = {id(p.spare.x) for p in entries if not any(p.spare.x is k.x for k in known)}
+        # a spare of a later run is one of the earlier runs' buffers
+        for i, p in enumerate(entries[1:], 1):
+            assert p.cur is moved[i - 1]
+            earlier = {id(e.cur.x) for e in entries[:i]} | {id(e.spare.x) for e in entries[:i]}
+            assert id(p.spare.x) in earlier or (frame == 0 and i == 1), (frame, i)
+        assert len(fresh) == (2 if frame == 0 else 0), frame  # the copy and the zeros
+        # an aux a run but the first of a frame that finds the aux kept; a
+        # retire with each later one but the first frame's second
+        retires = [r is not None for r in auxes]
+        assert retires == ([False, False, True, True] if frame == 0 else [True] * 3), frame
+        assert not any(bucket_cuda._shares(p.spare, state) for p in entries)
+        assert_same(state, held, f"frame {frame}: the given state")
+        ref = bucket.run_frame_bucket(ref, pv, 10, 4)
+        assert_same(out, ref, f"frame {frame}")
+        assert spare.state is out and not bucket_cuda._shares(spare.buffer, out)
+        state = out
+
+
+# scenes for the live-tile frame across frames: a lattice blob that drifts
+# across a lane chunk's edge (tiles going live and dead between rebuckets),
+# the same blob drifting back, a thermal lattice over the whole box, a random
+# half-live grid with non-zero tombstones (the first frame must keep them),
+# and the all-dead grid
+FRAME_SCENES = {
+    "drift-right": lambda: lattice_fields(CFG, 4, 4, (0.42, 0.3), drift=15000.0),
+    "drift-left": lambda: lattice_fields(CFG, 4, 4, (0.58, 0.7), drift=-15000.0),
+    "thermal": lambda: lattice_fields(CFG, 50, 26, (0.5, 0.5)),
+    "random": lambda: (SCENES["quarter"](), step_meta()),
+    "empty": lambda: (empty_fields(), step_meta()),
+}
+
+
+@pytest.mark.parametrize("steps", [1, 10, 8])
+@pytest.mark.parametrize("chunks", [2, 4, 8])
+@pytest.mark.parametrize("case", sorted(FRAME_SCENES))
+def test_live_tile_frames_with_one_spare_match_the_classic_frames(case, chunks, steps):
+    """Three live-tile frames in a row that share one ``FrameSpare`` (each
+    given the state the one before returned, as the Simulator serves) equal
+    the classic plain frames on all five fields of every slot; ``steps``
+    of 1 (no rebucket: nothing is kept), 10 (not a multiple of the
+    rebucket cadence, 4) and 8; the given state's bytes are unchanged after
+    each frame. The drifting blobs take tiles from live to dead and from
+    dead to live between rebuckets."""
+    fields, meta = FRAME_SCENES[case]()
+    state, params = from_reference(fields, meta)
+    pv = params.vector()
+    flags = []
+    spare, ref = bucket_cuda.FrameSpare(), state
+    for frame in range(3):
+        held = ParticleState(*(a.clone() for a in state))
+        out = bucket_cuda.run_frame_bucket_cuda(state, pv, steps, 4, lane_chunks=chunks,
+                                                ext_io=True, block_rows=ROWS, spare=spare)
+        assert_same(state, held, f"{case} frame {frame}: the given state")
+        ref = bucket.run_frame_bucket(ref, pv, steps, 4)
+        assert_same(out, ref, f"{case} frame {frame}")
+        assert (spare.buffer is None) == (steps == 1)
+        flags.append(bucket.ext_step_aux(out, pv, chunks, ROWS).flags)
+        state = out
+    if case.startswith("drift") and steps == 10:
+        loaded = from_reference(fields, meta)[0]
+        tiles = torch.stack([bucket.ext_step_aux(loaded, pv, chunks, ROWS).flags] + flags)
+        went_dead = ((tiles[:-1] == 1) & (tiles[1:] == 0)).any()
+        went_live = ((tiles[:-1] == 0) & (tiles[1:] == 1)).any()
+        assert bool(went_dead) and bool(went_live), tiles.tolist()
+
+
+def tile_aux_model(ty: torch.Tensor, params: torch.Tensor, chunks: int, rows: int,
+                   threads: int = 1024) -> bucket.ExtStepAux:
+    """``ps_tile_aux`` as its two launches compute it: each tile's largest
+    live slot + 1 (parked in ``order``), then one block of ``threads``
+    takes omax as their max and writes ``order`` as the stable partition of
+    the flags, ``threads`` tiles at a time (ballot, per-warp popcounts,
+    their exclusive scan), the tail filled with the last live tile; and each
+    bucket's largest live slot + 1."""
+    by, bx, cap = ty.shape
+    ty_rows, n_tiles = bucket.ext_tiling(ty.shape, chunks, rows)
+    slot = np.arange(cap) + 1
+    t = ty.numpy().reshape(by // ty_rows, ty_rows, chunks, bx // chunks, cap)
+    tile_max = np.where(t >= 0, slot, 0).max(axis=(1, 3, 4)).reshape(-1)
+    flags = (tile_max > 0).astype(np.int32)
+    order = tile_max.astype(np.int32)
+    omax = int(order.max())  # every read of the maxima comes before a write
+    base = 0
+    for start in range(0, n_tiles, threads):
+        live = np.zeros(threads, bool)
+        seg = flags[start:start + threads] != 0
+        live[:len(seg)] = seg
+        warps = live.reshape(-1, 32)
+        counts = warps.sum(1)
+        warp_off = np.cumsum(counts) - counts
+        for w, lanes in enumerate(warps):
+            for lane in np.nonzero(lanes)[0]:
+                order[base + warp_off[w] + lanes[:lane].sum()] = start + w * 32 + lane
+        base += int(counts.sum())
+    order[base:] = order[base - 1] if base else 0
+    out = torch.cat([params, torch.tensor([float(omax)])]).to(torch.float32)
+    bucket_max = np.where(ty.numpy() >= 0, slot, 0).max(axis=-1).astype(np.int32)
+    return bucket.ExtStepAux(out, torch.from_numpy(flags), torch.from_numpy(order),
+                             torch.tensor([max(base, 1)], dtype=torch.int32), ty_rows, chunks,
+                             torch.from_numpy(bucket_max))
+
+
+def single_tile_ty(shape, chunks, rows, tile, slot=3):
+    """A dead grid with one live slot, in tile ``tile``."""
+    ty = torch.full(shape, -1, dtype=torch.int32)
+    ty_rows, n_tiles = bucket.ext_tiling(shape, chunks, rows)
+    block, chunk = divmod(tile % n_tiles, chunks)
+    ty[block * ty_rows + ty_rows - 1, (chunk + 1) * (shape[1] // chunks) - 1, slot] = 0
+    return ty
+
+
+AUX_GRIDS = {  # name -> (ty, chunks, rows)
+    **{f"{case}-{c}": (lambda case=case: torch.from_numpy(SCENES[case]()[4]), c, ROWS)
+       for case in SCENES for c in (2, 4, 8)},
+    **{f"one-tile-{t}": (lambda t=t: single_tile_ty(CFG.grid_shape, 4, ROWS, t), 4, ROWS)
+       for t in (0, 3, 7)},
+    # 2,048 tiles of one bucket row: the partition in two chunks of 1,024
+    "tall": (lambda: torch.from_numpy(np.where(np.random.default_rng(9).random((1024, 4, 2))
+                                               < 0.3, 0, -1).astype(np.int32)), 2, 1),
+    "tall-one-tile": (lambda: single_tile_ty((1024, 4, 2), 2, 1, 1500, slot=1), 2, 1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(AUX_GRIDS))
+def test_tile_aux_kernel_model_and_wrapper_match_ext_step_aux(name):
+    """The two-launch partition of ``ps_tile_aux`` (modelled at the
+    kernel's 1,024 threads and at 64, so the tall grids take many chunks)
+    and ``ext_step_aux_cuda`` on a CPU state give ``ext_step_aux`` bit for
+    bit: random half-live grids, the all-dead grid, single live tiles; and
+    each bucket's largest live slot + 1 there."""
+    make, chunks, rows = AUX_GRIDS[name]
+    ty = make()
+    state = ParticleState(ty, ty, ty.float(), ty.float(), ty)
+    pv = SimParams.from_record(step_meta()).vector()
+    want = bucket.ext_step_aux(state, pv, chunks, rows)
+    for got in (tile_aux_model(ty, pv, chunks, rows), tile_aux_model(ty, pv, chunks, rows, 64),
+                bucket_cuda.ext_step_aux_cuda(state, pv, chunks, rows)):
+        for field in ("params", "flags", "order", "sizes", "bucket_max"):
+            a, b = getattr(got, field), getattr(want, field)
+            assert a.dtype == b.dtype and torch.equal(a, b), (name, field)
+        assert (got.ty_rows, got.lane_chunks) == (want.ty_rows, want.lane_chunks)
+    if name.startswith("one-tile") or name == "tall-one-tile":
+        assert int(want.sizes) == 1 and int(want.flags.sum()) == 1
+
+
+@pytest.mark.parametrize("case", ["drift-right", "thermal", "one-tile", "empty"])
+def test_tile_retire_tombstones_what_went_dead(case):
+    """The plain retire (and the aux wrapper's on the CPU): a buffer the
+    live-tile step wrote under the old aux, retired against the rebucket's
+    ty, holds tombstones on every slot dead in the new state, so it agrees
+    with the rebucket's output there; the slots it changed are the ones
+    that were live and went dead (it writes below each bucket's old
+    ``bucket_max`` only, on slots that are tombstones already or were
+    live)."""
+    pv = SimParams.from_record(step_meta()).vector()
+    if case == "one-tile":
+        ty = single_tile_ty(CFG.grid_shape, C, ROWS, 2)
+        fields = (torch.zeros(CFG.grid_shape, dtype=torch.int32),) * 2 + (
+            torch.zeros(CFG.grid_shape),) * 2 + (ty,)
+        old = ParticleState(*fields)
+    else:
+        fields, meta = FRAME_SCENES[case]()
+        old, params = from_reference(fields, meta)
+        pv = params.vector()
+    aux = bucket.ext_step_aux(old, pv, C, ROWS)
+    written = bucket_cuda.ext_pair(old).spare
+    for _ in range(3):
+        bucket.bucket_step_ext_into(ParticleState(*written[:4], old.ty), aux, True, written)
+    new = bucket.bucket_move_direct(ParticleState(*written[:4], old.ty))
+
+    def through_the_aux(buf, ty, old_aux):
+        got = bucket_cuda.ext_step_aux_cuda(new, pv, C, ROWS, (buf, old_aux))
+        want = bucket.ext_step_aux(new, pv, C, ROWS)
+        for field in ("params", "flags", "order", "sizes", "bucket_max"):
+            assert torch.equal(getattr(got, field), getattr(want, field))
+
+    for retire in (bucket.tile_retire, through_the_aux):
+        buf = ParticleState(*(a.clone() for a in written[:4]), new.ty)
+        retire(buf, new.ty, aux)
+        dead = new.ty < 0
+        changed = torch.zeros_like(dead)
+        for name, a, b, w in zip(ParticleState._fields, buf[:4], new[:4], written[:4]):
+            assert torch.equal(a[dead], b[dead]), (case, name)
+            changed |= a != w
+        assert not (changed & ~(dead & (old.ty >= 0))).any(), case
+    if case == "one-tile":
+        assert bool(changed.any())  # the one particle left its slot
 
 
 def staged_runs_step(state: ParticleState, pv: torch.Tensor) -> ParticleState:

@@ -181,10 +181,13 @@ def record_sim(frame):
 
 
 @pytest.mark.parametrize("overflow", ["ncap"])
-def test_record_path_on_both_redo_paths(overflow):
+def test_record_path_on_both_redo_paths(overflow, monkeypatch):
     """The record path's frame equals the fields' path's when its pack
     length (``ncap``, the one sticky size it has) is widened and redone."""
     sim, want = record_sim(_scene(16, 16, distance_factor=1.1, speed=5.0, box_fill=0.4))
+    # a recorder of its own: the process's would keep these spans for a
+    # later test that exports it (tests/test_torch_tracing.py)
+    monkeypatch.setattr(profiling, "RECORDER", profiling.Recorder())
     with profiling.recording():
         before = dict(profiling.RECORDER.counters)
         sim._readback_ncap = 4
@@ -198,7 +201,7 @@ def test_record_path_on_both_redo_paths(overflow):
 
 
 @pytest.mark.parametrize("case", ["sparse lattice", "full buckets", "all dead"])
-def test_cpu_grids_read_back_through_the_record_pack(case):
+def test_cpu_grids_read_back_through_the_record_pack(case, monkeypatch):
     """A CPU Simulator's ``read_frame`` of a bucket grid gives the bytes of
     ``dense_readback`` + ``dense_to_particles`` at ``kcap = CAP``, and
     ``readback.records`` counts each frame: the record pack is a CPU grid's
@@ -210,6 +213,7 @@ def test_cpu_grids_read_back_through_the_record_pack(case):
                                else 0.0)
         sim.state, _ = from_reference(fields, sim.meta_record)
     got, want = [], []
+    monkeypatch.setattr(profiling, "RECORDER", profiling.Recorder())
     with profiling.recording():
         before = dict(profiling.RECORDER.counters)
         for _ in range(2):
